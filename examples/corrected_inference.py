@@ -1,7 +1,7 @@
 """Recommended production inference, end to end, in about a minute.
 
 The faithful defaults reproduce the reference's behavior exactly —
-including its statistical defects (RESULTS_r2.md: the int()-cast
+including its statistical defects (README "Statistical findings": the int()-cast
 likelihood sawtooth dominates the pseudo-marginal noise AND fabricates
 false precision on degenerate directions).  This example runs the
 recommended CORRECTED configuration on the simultFit flagship:
@@ -14,7 +14,7 @@ and prints the honest posterior: the beamE-eLoss degeneracy ridge is
 wide, their difference (the mean on-target beam energy) is tight.
 
 Run:  JAX_PLATFORMS=cpu PYTHONPATH=. python examples/corrected_inference.py
-(or on TPU by dropping JAX_PLATFORMS; equivalent CLI:
+(or on a GPU by dropping JAX_PLATFORMS; equivalent CLI:
  ``python -m mcmctoffitting_tpu.cli.simult_fit -expectedForward
    -likelihood poisson``)
 """

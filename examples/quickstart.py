@@ -1,7 +1,6 @@
 """Quickstart: fit a synthetic multi-standoff dataset end-to-end.
 
-Mirrors the README library example at demo sizes (runs in ~1 min on CPU,
-seconds on TPU once compiled):
+Mirrors the README library example at demo sizes (runs in ~1 min on CPU):
 
     PYTHONPATH=. python examples/quickstart.py
 

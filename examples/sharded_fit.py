@@ -4,15 +4,15 @@ The reference scales walker evaluation with a thread pool or MPI
 (``tests/simultFit.py:688-718``); here the walker axis is a device-mesh
 array axis — `shard_map` splits the per-walker likelihood evaluations
 across every visible chip and XLA inserts the one tiny all-gather the
-stretch move needs.  The SAME code runs on 1 chip, a TPU pod slice, or —
+stretch move needs.  The SAME code runs on 1 GPU, the 4 GPUs of a host, or —
 as below — a virtual 8-device CPU mesh, so you can validate sharded
 programs anywhere:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         PYTHONPATH=. python examples/sharded_fit.py
 
-On real multi-chip hardware drop both env vars.  Sharded and local
-chains are bitwise identical (tests/test_sharding.py pins this).
+On a multi-GPU host drop both env vars.  On the CPU mesh, sharded and
+local chains are bitwise identical (tests/test_sharding.py pins this).
 """
 import jax
 import jax.numpy as jnp

@@ -1,9 +1,9 @@
-"""mcmctoffitting_tpu — TPU-native neutron TOF-spectrum Bayesian fitting.
+"""mcmctoffitting_tpu — neutron TOF-spectrum Bayesian fitting on the GPU.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 gcrich/mcmcTOFfitting: simulation-based binned likelihoods for neutron
 time-of-flight spectra, a native affine-invariant ensemble sampler (vmapped
-walkers, shardable across TPU meshes), and posterior-predictive tooling.
+walkers, shardable across a device mesh), and posterior-predictive tooling.
 
 Layering (mirrors SURVEY.md §1):
   constants/config  ->  ops (physics kernels)  ->  models (forward + lnprob)

@@ -1,6 +1,6 @@
 """CLI driver: csi_oneBD fit (flagship #2).
 
-TPU rebuild of ``python tests/csi_oneBD.py`` (``tests/csi_oneBD.py:58-76``
+Rebuild of ``python tests/csi_oneBD.py`` (``tests/csi_oneBD.py:58-76``
 argparse surface): fixed beam reference energy, per-run scale + Poisson
 background, spline-table stopping, cell attenuation, -qnd/-quickish/
 -hardcore sampling presets, -shiftTOF systematic.  Threads/MPI flags are

@@ -16,8 +16,8 @@ import numpy as np
 
 
 def main(argv=None) -> dict:
-    from ._driver import enable_compile_cache
-    enable_compile_cache()
+    from ..utils import compile_cache
+    compile_cache.enable()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-chainFilename", required=True, type=str)
     p.add_argument("-model", choices=["simult", "onebd", "csi2016"],

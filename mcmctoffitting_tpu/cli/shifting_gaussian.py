@@ -15,7 +15,7 @@ m=-0.3, b=5; ``tests/shiftingGaussian_brute.py:150-160``), then
 
 ``-model tof`` instead runs PT on a REDUCED TOF POSTERIOR (simultFit,
 2 runs, corrected likelihood, counts forward): the beamE-eLoss direction
-is a long degeneracy ridge (RESULTS_r2.md) — the tempered ladder's hot
+is a long degeneracy ridge — the tempered ladder's hot
 rungs traverse it freely and replica exchange carries that mobility to the
 cold chain.  Reported: cold-chain beamE span + swap acceptances.
 
@@ -32,8 +32,8 @@ TRUTH = (0.4, -0.3, 5.0)   # sigma, m, b (tests/shiftingGaussian_brute.py)
 
 
 def main(argv=None) -> dict:
-    from ._driver import enable_compile_cache
-    enable_compile_cache()
+    from ..utils import compile_cache
+    compile_cache.enable()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-model", choices=["analytic", "tof"],
                    default="analytic")

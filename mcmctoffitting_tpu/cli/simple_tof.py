@@ -44,8 +44,8 @@ MODEL_CONFIGS = {
 
 
 def main(argv=None) -> dict:
-    from ._driver import enable_compile_cache
-    enable_compile_cache()
+    from ..utils import compile_cache
+    compile_cache.enable()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", choices=list(MODEL_CONFIGS), default="v0")
     p.add_argument("--datafile", default=None,

@@ -1,6 +1,6 @@
 """CLI driver: simultaneous multi-standoff fit (flagship #1).
 
-TPU rebuild of ``python tests/simultFit.py`` (``tests/simultFit.py:42-63``
+Rebuild of ``python tests/simultFit.py`` (``tests/simultFit.py:42-63``
 argparse surface).  Differences by design:
 
 * ``-nThreads`` / ``-mpi`` are accepted-and-ignored — walker parallelism is

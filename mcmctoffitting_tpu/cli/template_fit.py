@@ -17,8 +17,8 @@ import numpy as np
 
 
 def main(argv=None) -> dict:
-    from ._driver import enable_compile_cache
-    enable_compile_cache()
+    from ..utils import compile_cache
+    compile_cache.enable()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-filename", default=None, type=str,
                    help="observed multistandoff TSV (default: synthesize)")

@@ -2,7 +2,7 @@
 
 ``compat.emcee`` mirrors the emcee 2.x classes the reference scripts are
 written against (``EnsembleSampler``, ``PTSampler``) on top of this
-package's TPU-native samplers, so a reference user's own driver code runs
+package's compiled samplers, so a reference user's own driver code runs
 unmodified:
 
     from mcmctoffitting_tpu.compat import emcee

@@ -1,4 +1,4 @@
-"""emcee 2.x API shim over the TPU-native samplers.
+"""emcee 2.x API shim over the package's compiled samplers.
 
 The reference's drivers are written directly against emcee 2's classes —
 ``emcee.EnsembleSampler(nWalkers, nDim, lnprob, kwargs={...}, threads=N)``
@@ -18,7 +18,7 @@ function:
 * ``jax`` — the function is JAX-traceable: walkers become a vmapped array
   axis and each ensemble step is one compiled XLA program
   (``sampler/stretch.py`` / ``sampler/pt.py`` machinery), so existing
-  emcee driver loops get TPU-batched evaluation for free;
+  emcee driver loops get device-batched evaluation for free;
 * ``host`` — arbitrary Python/numpy functions (the literal reference use
   case): a plain numpy implementation of the same red-black stretch move
   evaluates walkers in a host loop, exactly like emcee's

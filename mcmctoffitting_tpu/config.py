@@ -5,7 +5,7 @@ Replaces the scattered per-driver binning setup of the reference
 ``tests/csi_oneBD.py:198-217``) with one immutable, hashable ``Binning``
 dataclass.  Hashability matters: binning objects are passed as *static*
 arguments to jitted forward models, so each distinct binning compiles its own
-fixed-shape XLA program (no dynamic shapes on TPU).
+fixed-shape XLA program (XLA compiles static shapes).
 """
 from __future__ import annotations
 

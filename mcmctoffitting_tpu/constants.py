@@ -1,6 +1,6 @@
 """Physical constants and experiment geometry registry.
 
-TPU-native rebuild of the reference constants layer
+JAX rebuild of the reference constants layer
 (``constants/constants.py:10-132`` in gcrich/mcmcTOFfitting). All numeric
 values are carried over verbatim; the class-namespace style of the reference
 is replaced by frozen dataclasses so geometries are immutable, hashable

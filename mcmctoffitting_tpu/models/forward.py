@@ -8,14 +8,14 @@ The reference duplicates ``generateModelData`` in ~9 driver scripts
 :class:`ForwardSpec`; the historical variants are spec presets in
 ``models/simult.py`` / ``models/onebd.py``.
 
-TPU-first structure (one fused XLA program, no host round-trips):
+Structure (one fused XLA program, no host round-trips):
 
   1. sample N initial deuteron energies (beamE - lognorm, masked redraw);
   2. transport ALL samples through ALL x-bin centers at once
      (fixed-step RK4 batch, or one gather+Horner spline-table lookup —
      replacing per-call dopri5 / per-sample Python spline loops);
   3. cross-section (+ cell-attenuation) weights and the per-x-bin energy
-     histograms as one-hot MXU matmuls (ops/histogram.py) — replacing
+     histograms as one-hot matmuls (ops/histogram.py) — replacing
      numpy histogram loops;
   4. TOF synthesis on the (x-bin, eD-bin[, zero-degree-segment]) lattice as
      a closed-form broadcast — replacing the ``np.ndenumerate`` Python loop
@@ -28,7 +28,6 @@ compiling one program per (spec, window) pair.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional
 
 import jax
@@ -92,22 +91,21 @@ class ForwardSpec:
     n_redraw_rounds: int = -1
     histogram_chunk: int = 16384
     # cross-section weighting strategy:
-    #   'taylor' — gather-free Taylor-moment weighting (TPU fast path):
+    #   'taylor' — gather-free Taylor-moment weighting:
     #     accumulate per-bin moment histograms (1, d, d^2, d^3) of the
     #     within-bin offset d and contract with (sigma, sigma', sigma'',
     #     sigma''') at the bin centers.  Exact for every bin whose interior
     #     contains no spline knot (the cubic IS its own 3rd-order Taylor),
     #     and accurate to O(knot jump in sigma''' * binwidth^3) otherwise —
     #     orders of magnitude below the XS table's own 1% precision.
-    #     Rationale: per-sample spline evaluation needs a gather, and
-    #     gathers dominate everything else on TPU (measured 1.9-6.8 s vs
-    #     61 ms for the entire rest of the forward model).
+    #     Rationale: per-sample spline evaluation needs a gather per
+    #     sample; the moment form needs none.
     #   'exact' — per-sample spline evaluation (reference-literal path).
     #   'e0grid' — static e0-space preimage factorization (ops/e0grid.py):
     #     the parameter-INdependent transport map is inverted at build time,
     #     so the per-sample work collapses to one fine-grid moment one-hot
     #     shared by every x-slice (F compares/sample instead of
-    #     M*Be + transport) plus one static MXU contraction.  Requires
+    #     M*Be + transport) plus one static matmul.  Requires
     #     transport='table' (the preimages invert the stopping table) and
     #     ``e0_grid_table``.  Accuracy: boundary fine cells are split by a
     #     mass/mean-conserving linear-density model; per-grid-cell error is
@@ -135,7 +133,7 @@ class ForwardSpec:
     #     unbiased estimator of the same limit with per-cell variance
     #     measurably equal to (strictly below) the 'mc' path's, at O(F)
     #     cost per eval instead of O(N) — the recommended production MC
-    #     mode (see RESULTS_r3.md noise + parity studies).  Same
+    #     mode (parity: artifacts/parity_*counts*).  Same
     #     requirements as 'expected'.
     sampling: str = "mc"
     # which e0 mean feeds the TOF lattice (tests/simultFit.py:288):
@@ -158,59 +156,48 @@ class ForwardSpec:
     #     ~50x below the pinned fine-grid margin — for half the
     #     dominant transcendental stage.
     moment_closure: str = "exact"
-    # dtype of the one-hot/moment-channel MXU contraction.  bf16 measured no
-    # faster than f32 here (the contraction is not bandwidth-bound); if used,
-    # the final weighted grid differs from f32 by <1e-5 relative (the
-    # sigma*M0 term dominates) — far below Monte-Carlo noise.
+    # dtype of the one-hot/moment-channel contraction.  If bf16, the final
+    # weighted grid differs from f32 by <1e-5 relative (the sigma*M0 term
+    # dominates) — far below Monte-Carlo noise.  Speed not yet measured
+    # on the H100.
     moment_dtype: str = "float32"
     # dtype of the static A operator in the e0grid contraction
     # (_e0grid_contract).  At the default simult shapes A is ~4 MB and
     # f32 is free; at the oneBD -hardcore scale A is (4F=4096,
-    # M*Be=8000) = 131 MB and the per-half-ensemble (W=128) contraction
-    # is HBM-bandwidth-bound on streaming A — bf16 halves the bytes (and
-    # quadruples the MXU rate if it ever turns compute-bound).
+    # M*Be=8000) = 131 MB, and bf16 storage halves the bytes the
+    # per-half-ensemble contraction streams.  Whether that pays on the
+    # H100 is not yet measured (the hardcore preset keeps bf16).
     # Accuracy (measured, tests/test_e0grid.py): the contraction
     # reconstructs a cubic from GLOBAL t-moments, which cancels across
     # the four channel rows with condition ~16, so rounding A costs
     # ~16x bf16 eps: median grid error ~1.6%, max ~6% of the grid's
     # dominant scale.  That is below the hardcore counts estimator's
     # ~9% per-cell Poisson noise but is a systematic perturbation, not
-    # noise — the knob stays OFF everywhere until a posterior-level A/B
-    # gates a preset flip (RESULTS_r5.md).  A cancellation-free bf16
-    # path needs the A build re-expressed in per-cell CENTERED moments.
+    # noise: only the -hardcore counts preset turns it on, after a
+    # posterior-level A/B (artifacts/hardcore_a_dtype_ab.json, worst
+    # |dz| = 0.22).  A cancellation-free bf16 path needs the A build
+    # re-expressed in per-cell CENTERED moments.
     a_dtype: str = "float32"
     # radix factorization of the moment one-hot: 0 = direct (..== bins over
     # all Be columns); L > 0 decomposes idx = q*L + r and contracts via a
-    # (4L x chunk) x (chunk x ceil(Be/L)) matmul — the VPU compare count per
+    # (4L x chunk) x (chunk x ceil(Be/L)) matmul — the compare count per
     # sample drops from M*Be to M*(L + ceil(Be/L) + 4L) (a ~4x cut at
-    # Be=400) and the MXU tile grows from 4 rows to 4L.  Exact: one-hot
-    # factor matrices have a single 1 per row.  MEASURED SLOWER on v5e
-    # (the channel expansion + relayout outweighs the compare savings:
-    # 95.8/215 ms vs 69.9 ms base at L=8/16) — kept for the record.
+    # Be=400) and the matmul grows from 4 rows to 4L.  Exact: one-hot
+    # factor matrices have a single 1 per row.  Default off; not yet
+    # measured on the H100.
     moment_radix: int = 0
     # radix factorization of the TOF-synthesis histogram one-hot
     # (ops/histogram._scan_onehot): 0 = direct (n_bins compares/sample);
     # L > 0 factorizes idx = q*L + r into two small one-hots (L + ceil(
     # n_bins/L) compares/sample, ~4x fewer at the 45-70-bin TOF windows).
-    # Exact (same bf16 weight rounding class as the direct path).  The
-    # counts estimator collapsed the per-sample stages, leaving this
-    # VPU-compare-bound histogram as a visible share of the step — unlike
-    # moment_radix (4-channel expansion, measured slower), the single-
-    # channel TOF histogram keeps the compare savings.  Measured knob;
-    # see BENCH_TOF_RADIX / RESULTS_r3.md before changing the default.
+    # Exact (same weight rounding class as the direct path).  Applies to
+    # the XLA TOF path only (the GPU kernel, ops/pallas_tof.py, bins
+    # directly); the simult preset's 16 is not yet measured on the H100.
     tof_hist_radix: int = 0
     # run-axis execution in tof_spectra_multi: 'batched' vmaps the run
-    # axis through draw+grid (round-1 win), 'sequential' lax.maps it —
-    # the per-(walker, run) working set at 200k draws pushes the batched
-    # form superlinear (measured 69.9 ms for 4 batched runs vs 13.4 ms
-    # for 1 at the same draw count), so sequential wins at scale
+    # axis through draw+grid, 'sequential' lax.maps it — the per-(walker,
+    # run) working set at 200k draws is R times smaller sequentially
     run_axis: str = "batched"
-    # run the fused Pallas transport+moments kernel (ops/pallas_forward.py)
-    # instead of the XLA scan for the taylor/rk4 path.  Numerically equal to
-    # 1e-7; measured on v5e: 73 ms vs XLA's 40 ms per 32-walker batch (XLA's
-    # automatic cross-chunk pipelining wins), so the XLA path is the default
-    # and the kernel is kept as the explicitly-scheduled alternative.
-    use_pallas: bool = False
 
     def en_centers(self) -> np.ndarray:
         return dd_neutron_energy_np(self.ed_binning.centers)
@@ -302,7 +289,7 @@ def _apply_attenuation(spec: ForwardSpec, grid):
 def _e0grid_weight_grid(spec: ForwardSpec, e_zeros):
     """xs_mode='e0grid' hot path (see ops/e0grid.py for the construction).
 
-    Per sample-chunk: arithmetic fine-cell index + one one-hot MXU moment
+    Per sample-chunk: arithmetic fine-cell index + one one-hot moment
     dot SHARED across all x-slices; after the scan, one static matmul maps
     the (4, F) moments to the (M, Be) grid.  No transport lookups, no
     per-slice one-hots, no gathers.
@@ -342,7 +329,13 @@ def _e0grid_weight_grid(spec: ForwardSpec, e_zeros):
 
 
 def _e0grid_contract(spec: ForwardSpec, moments):
-    """(4, F) fine-cell moments -> (M, Be) grid via the static A operator."""
+    """(4, F) fine-cell moments -> (M, Be) grid via the static A operator.
+
+    precision='highest' is load-bearing: the cubic reconstruction cancels
+    across the four channel rows with condition ~16, and a default-
+    precision f32 matmul on the GPU runs in TF32 (10-bit mantissa),
+    whose rounding of A that cancellation would amplify ~16x.
+    """
     tab = spec.e0_grid_table
     if spec.a_dtype == "bfloat16":
         # A lives in HBM as bf16 (halved stream bytes); the convert to
@@ -430,7 +423,7 @@ def energy_weight_grid(spec: ForwardSpec, e_zeros):
     Default path ('taylor') STREAMS: a ``lax.scan`` over sample chunks
     transports each chunk through all x-bin centers and immediately reduces
     it into within-bin offset moment histograms (1, d, d^2, d^3) with a
-    one-hot MXU dot — the (x_bins, N) transported-energy array is never
+    one-hot dot — the (x_bins, N) transported-energy array is never
     materialized (peak memory O(x_bins * chunk), which is what lets the
     walker-and-run-batched joint likelihood fit in HBM).  The moments are
     then contracted with the cross-section spline's value/derivatives at
@@ -442,15 +435,6 @@ def energy_weight_grid(spec: ForwardSpec, e_zeros):
     if spec.xs_mode == "e0grid":
         _validate_e0grid_table(spec)
         grid = _e0grid_weight_grid(spec, e_zeros)
-    elif (spec.xs_mode == "taylor" and hasattr(spec.xs, "eval_np")
-            and spec.use_pallas and spec.transport == "rk4"):
-        from ..ops.pallas_forward import fused_transport_moments
-        moments = fused_transport_moments(
-            e_zeros, spec.stopping, spec.x_binning.centers, eb.lo, eb.hi,
-            eb.n, n_substeps=spec.rk4_substeps,
-            n_blk=min(spec.histogram_chunk, 4096))       # (M, 4, Be)
-        taylor = _taylor_coeffs(spec)
-        grid = jnp.sum(moments * jnp.asarray(taylor, jnp.float32), axis=-2)
     elif spec.xs_mode == "taylor" and hasattr(spec.xs, "eval_np"):
         e0_c, valid_c = _chunk_with_mask(e_zeros, spec.histogram_chunk,
                                          eb.lo)
@@ -556,44 +540,59 @@ def _add_background(spec: ForwardSpec, spectrum, bg_level, key, n_bins):
     ``tests/csi_oneBD.py:521``) or its expectation (bg_mode='expected')."""
     if spec.bg_mode == "expected":
         return spectrum + bg_level
-    # backend-dispatched like the counts stage (ops/poisson.poisson_auto)
-    from ..ops.poisson import poisson_auto
-    return spectrum + poisson_auto(
+    from ..ops.poisson import poisson_ptrs
+    return spectrum + poisson_ptrs(
         key, jnp.full((n_bins,), bg_level)).astype(spectrum.dtype)
 
 
-def _segments_hist_auto(spec: ForwardSpec, base_tof, draws, zt, zw,
-                        windows):
-    """Backend dispatch for the zero-degree-segments TOF histogram stage.
+def _tof_spread(spec: ForwardSpec):
+    """(times, weights), each (Be, K), of the zero-degree transit spread
+    the TOF-synthesis histogram applies: the 10-segment analytic spread
+    (simult era) or a single zero-offset unit segment ('expo'/'none',
+    where the transit is applied to the binned spectrum instead)."""
+    if spec.zero_degree == "segments":
+        return _zero_degree_spread(spec)
+    zeros = jnp.zeros((spec.ed_binning.n, 1), jnp.float32)
+    return zeros, jnp.ones_like(zeros)
 
-    TPU: the fused Pallas kernel (ops/pallas_tof.py) — the stage is HBM
-    one-hot-traffic-bound in XLA (tools/tpu_joint_probe.py, r4); the
-    kernel keeps the whole expansion + radix contraction VMEM-resident.
-    CPU/other backends (and windows wider than the kernel's 128-bin
-    capacity): the expand-then-contract XLA path.  Override with
-    MCMCTOF_TOF_HIST=xla|pallas.  Same np.histogram semantics and weight
-    rounding class either way; f32 accumulation ORDER differs, so the
-    backends agree to summation noise, not bitwise (pinned by
-    tests/test_pallas_tof.py).
 
-    base_tof/draws: (R, M, Be); zt/zw: (Be, K).  Returns (R, n_pad).
-    """
-    choice = os.environ.get("MCMCTOF_TOF_HIST", "auto")
-    use_pallas = (jax.default_backend() == "tpu" if choice == "auto"
-                  else choice == "pallas")
-    n_pad = max(w.n_bins for w in windows)
-    if use_pallas and n_pad <= 128:
-        from ..ops.pallas_tof import make_tof_hist_segments
-        fn = make_tof_hist_segments(
-            tuple(windows), int(base_tof.shape[-2]),
-            int(base_tof.shape[-1]), int(zt.shape[-1]))
-        return fn(base_tof, draws, zt, zw)
+def tof_histogram_xla(spec: ForwardSpec, base_tof, draws, zt, zw, windows):
+    """TOF-synthesis histogram, XLA path: expand the (R, M*Be*K) samples,
+    then the scanned one-hot contraction of ops/histogram.py."""
     n_runs = base_tof.shape[-3]
     values = base_tof[..., None] + zt                    # (R, M, Be, K)
     weights = draws[..., None] * zw
     return weighted_histogram_multi_window(
         values.reshape(n_runs, -1), windows, weights.reshape(n_runs, -1),
         chunk=spec.histogram_chunk, radix=spec.tof_hist_radix)
+
+
+def tof_histogram_kernel(spec: ForwardSpec, base_tof, draws, zt, zw,
+                         windows):
+    """TOF-synthesis histogram, fused GPU kernel (ops/pallas_tof.py)."""
+    del spec
+    from ..ops.pallas_tof import make_tof_hist_segments
+    fn = make_tof_hist_segments(
+        tuple(windows), int(base_tof.shape[-2]), int(base_tof.shape[-1]),
+        int(zt.shape[-1]))
+    return fn(base_tof, draws, zt, zw)
+
+
+def tof_histogram(spec: ForwardSpec, base_tof, draws, zt, zw, windows):
+    """Step 5a: per-run TOF histograms of the spread lattice.
+
+    base_tof/draws: (R, M, Be); zt/zw: (Be, K).  Returns (R, n_pad).
+    On the GPU the fused kernel runs (windows up to its 128-bin
+    register budget); elsewhere, and for wider windows, the XLA path.
+    Same np.histogram semantics either way; the kernel keeps f32 weights
+    where the XLA path's default-precision dot may round them to TF32, so
+    the two agree to that rounding, not bitwise.
+    """
+    from ..ops.pallas_tof import MAX_BINS
+    n_pad = max(w.n_bins for w in windows)
+    if jax.default_backend() == "gpu" and n_pad <= MAX_BINS:
+        return tof_histogram_kernel(spec, base_tof, draws, zt, zw, windows)
+    return tof_histogram_xla(spec, base_tof, draws, zt, zw, windows)
 
 
 def cell_tof_lattice(spec: ForwardSpec, standoff: float, e0_mean):
@@ -652,16 +651,9 @@ def tof_spectrum(key, params, spec: ForwardSpec, standoff: float,
 
     base_tof = cell_tof_lattice(spec, standoff, e0_mean)  # (M, Be)
 
-    if spec.zero_degree == "segments":
-        zt, zw = _zero_degree_spread(spec)                # (Be, K) x2
-        hist = _segments_hist_auto(spec, base_tof[None], draws[None],
-                                   zt, zw, (window,))[0]
-    else:
-        hist = weighted_histogram(base_tof.reshape(-1), window.lo,
-                                  window.hi, window.n_bins,
-                                  draws.reshape(-1),
-                                  chunk=spec.histogram_chunk,
-                                  radix=spec.tof_hist_radix)
+    zt, zw = _tof_spread(spec)                            # (Be, K) x2
+    hist = tof_histogram(spec, base_tof[None], draws[None], zt, zw,
+                         (window,))[0]
     if get_pdf:
         hist = histogram_density(hist, window.lo, window.hi)
 
@@ -707,10 +699,8 @@ def tof_spectra_multi(run_keys, params, spec: ForwardSpec,
         grids = jnp.broadcast_to(grid_1, (n_runs,) + grid_1.shape)
         e0_means = jnp.broadcast_to(mean_1, (n_runs,))
     elif spec.run_axis == "sequential":
-        # counts mode also lands here by default: batching its run axis
-        # was measured SLOWER on v5e (26.4k vs 33.0k walker-steps/s at the
-        # flagship config — the A-operator contraction reuses better when
-        # the runs stream through it sequentially)
+        # the presets' default; counts mode switches to the batched
+        # branch below at small ensembles (cli/_driver.resolve_run_axis)
         grids, e0_means = jax.lax.map(
             lambda k: grid_and_mean(spec, params, k), jnp.stack(draw_keys))
     elif spec.sampling == "counts":
@@ -724,6 +714,24 @@ def tof_spectra_multi(run_keys, params, spec: ForwardSpec,
             k, spec, params))(jnp.stack(draw_keys))       # (R, N)
         grids = jax.vmap(lambda e: energy_weight_grid(spec, e))(e_zeros)
         e0_means = jnp.mean(e_zeros, axis=-1)             # (R,)
+    base_tof = jax.vmap(lambda so, e0m: cell_tof_lattice(spec, so, e0m))(
+        jnp.asarray(standoffs, jnp.float32), e0_means)    # (R, M, Be)
+    return spectra_from_grids(spec, grids, base_tof, windows, scales,
+                              bg_levels, bg_keys, get_pdf=get_pdf)
+
+
+def spectra_from_grids(spec: ForwardSpec, grids, base_tof, windows: tuple,
+                       scales, bg_levels=None, bg_keys=None, *,
+                       get_pdf: bool = True):
+    """Steps 4-5 for all runs: (R, M, Be) weight grids + TOF lattices ->
+    R spectra (draw counts, TOF histogram, timing, scale, background).
+
+    The deterministic tail of :func:`tof_spectra_multi`, split out so the
+    forward can be compared stage by stage with the f64 host reference
+    (``ops/reference_np.py``).  ``bg_keys`` is needed only for
+    ``bg_mode='poisson'``.
+    """
+    n_runs = len(windows)
     area = spec.ed_binning.width * spec.x_binning.width
     grids = grids / (jnp.sum(grids, axis=(1, 2), keepdims=True) * area)
     draws = grids * spec.n_samples
@@ -731,19 +739,9 @@ def tof_spectra_multi(run_keys, params, spec: ForwardSpec,
         draws = jnp.rint(draws)
 
     # --- batched TOF stage: all runs share one histogram/convolution
-    # program (windows differ per run; see weighted_histogram_multi_window)
-    base_tof = jax.vmap(lambda so, e0m: cell_tof_lattice(spec, so, e0m))(
-        jnp.asarray(standoffs, jnp.float32), e0_means)    # (R, M, Be)
-    if spec.zero_degree == "segments":
-        zt, zw = _zero_degree_spread(spec)                # (Be, K) x2
-        hist = _segments_hist_auto(spec, base_tof, draws, zt, zw,
-                                   windows)               # (R, n_pad)
-    else:
-        hist = weighted_histogram_multi_window(
-            base_tof.reshape(n_runs, -1), windows,
-            draws.reshape(n_runs, -1),
-            chunk=spec.histogram_chunk,
-            radix=spec.tof_hist_radix)                    # (R, n_pad)
+    # program (windows differ per run; see tof_histogram)
+    zt, zw = _tof_spread(spec)                            # (Be, K) x2
+    hist = tof_histogram(spec, base_tof, draws, zt, zw, windows)  # (R, n_pad)
     if get_pdf:
         bin_widths = np.asarray([(w.hi - w.lo) / w.n_bins for w in windows],
                                 np.float32)[:, None]
@@ -763,7 +761,8 @@ def tof_spectra_multi(run_keys, params, spec: ForwardSpec,
         win = windows[r]
         spectrum = scales[r] * hist[r, : win.n_bins]
         if bg_levels is not None:
-            spectrum = _add_background(spec, spectrum, bg_levels[r],
-                                       bg_keys[r], win.n_bins)
+            spectrum = _add_background(
+                spec, spectrum, bg_levels[r],
+                None if bg_keys is None else bg_keys[r], win.n_bins)
         out.append(spectrum)
     return tuple(out)

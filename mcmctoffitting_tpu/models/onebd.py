@@ -95,8 +95,8 @@ def default_spec(n_samples: int = 200_000, *,
         beam_timing=GaussianTiming(2.7, 4),
         zero_degree="expo",
         cell_attenuation=True,
-        # see simult.default_spec: sequential run axis measured faster at
-        # the 200k-draw scale (tools/tpu_ablate2.py), for counts mode too
+        # see simult.default_spec: sequential run axis (not yet measured
+        # on the H100)
         run_axis="sequential",
         n_samples=n_samples,
         # the oneBD driver disabled the redraw loop (tests/csi_oneBD.py:440)
@@ -105,13 +105,13 @@ def default_spec(n_samples: int = 200_000, *,
         # has 100 (default) / 400 (-hardcore) eD bins vs simult's 50, so the
         # chunk is half/eighth to keep the same peak footprint
         histogram_chunk=512 if hardcore else 2048,
-        # hardcore counts: the (4F=4096, M*Be=8000) = 131 MB A operator
-        # makes the contraction HBM-bound at half-ensemble widths; bf16
-        # storage measured +36% end-to-end (82,103 -> 111,809
-        # walker-steps/s) and the full-fit posterior A/B passed at worst
-        # |dz| = 0.22 (artifacts/hardcore_a_dtype_ab.json).  -aDtype
+        # hardcore counts: the (4F=4096, M*Be=8000) = 131 MB A operator is
+        # stored in bf16, halving the bytes each contraction streams; the
+        # full-fit posterior A/B passed at worst |dz| = 0.22
+        # (artifacts/hardcore_a_dtype_ab.json).  Chosen by timing on the
+        # earlier accelerator; not yet measured on the H100.  -aDtype
         # float32 restores exact contraction; non-hardcore shapes keep
-        # f32 (A is ~4-16 MB there, the cast buys nothing).
+        # f32 (A is ~4-16 MB there).
         a_dtype=("bfloat16" if hardcore and sampling == "counts"
                  else "float32"),
         xs_mode=xs_mode,
@@ -133,7 +133,7 @@ class OneBDProblem:
     # at the flagship scale (nearly draw-count-independent) — the dominant
     # source of ensemble acceptance decay.  'poisson' = the correct
     # Poisson(obs | rate=model) logpmf: same posterior information, logp
-    # noise sigma ~ 2 at 200k draws (measured; RESULTS_r2.md).
+    # noise sigma ~ 2 at 200k draws (measured).
     likelihood: str = "reference"
 
     @property

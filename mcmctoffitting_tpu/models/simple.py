@@ -11,8 +11,8 @@ Covers the early reference drivers with one configurable model:
 * v2.5/v3 ``tests/intermediateTOFmodel.py`` / ``advIntermediateTOFmodel.py``
   — E0 ~ N(e0, e0*sigma0frac) transported by the Bethe ODE, 2 params.
 
-All share one TPU path: draw (x, E_d) samples, compute per-sample TOF
-closed-form, weighted-histogram on the MXU.  Unlike the flagship models the
+All share one device path: draw (x, E_d) samples, compute per-sample TOF
+closed-form, weighted-histogram by one-hot matmul.  Unlike the flagship models the
 sample axis is the histogram axis directly (no (x, eD) lattice resampling).
 """
 from __future__ import annotations

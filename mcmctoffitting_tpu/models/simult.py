@@ -82,16 +82,16 @@ def default_spec(n_samples: int = 200_000, *,
         xs_mode = "e0grid"  # the closed-form moments ride the A operator
     e0_grid_table = None
     # F=256 measured: max per-cell error 8.7% of the bin's own MC noise at
-    # the 200k-draw default (the ratio is N-independent), 17% faster than
-    # F=512 (the moment dot is F-proportional); tools/tpu_e0grid_stages.py
+    # the 200k-draw default (the ratio is N-independent); the moment dot
+    # is F-proportional, so the coarser grid is the cheaper one.
     # counts mode costs O(F) instead of O(N*F), so it affords a finer
     # grid — which also shrinks the within-cell granularity that made the
-    # coarse-F counts estimator noisier under rint (RESULTS_r3.md).
+    # coarse-F counts estimator noisier under rint.
     # F=512 measured equivalent to 1024 at the 200k-draw production scale
     # on all three instruments (operator logp shift 0.69 vs 0.66, per-eval
     # noise 1.02 vs 1.01, posterior A/B worst |dz| = 0.12;
-    # tools/counts_f_study.py, tools/counts_f_posterior_ab.py) and +20%
-    # walker-steps/s on TPU.  Below ~100k draws the within-cell rint
+    # tools/counts_f_study.py, tools/counts_f_posterior_ab.py) at half the
+    # F-proportional work.  Below ~100k draws the within-cell rint
     # granularity is no longer buried under the per-cell count noise
     # (measured 1.8x mc's per-eval noise at 50k draws/F=512 vs 1.2x at
     # F=1024), so small-draw runs keep the finer grid.
@@ -124,23 +124,16 @@ def default_spec(n_samples: int = 200_000, *,
         zero_degree="segments",
         cell_attenuation=False,
         # sequential run axis: the 4-run x 200k-draw batched working set
-        # went superlinear on v5e (tools/tpu_ablate_simult.py); lax.map
-        # over runs halved the measured lnprob block.  Measured for counts
-        # too: batching the run axis LOSES (26.4k vs 33.4k walker-steps/s
-        # at the flagship config) — the (4F)x(M*Be) A contraction batched
-        # over runs thrashes where the sequential program reuses it.
-        # RE-measured post-PTRS at the halved F=512 grid (out/tpu_ab_r3b,
-        # 2026-08-18): still loses, 47,063 vs 52,264 (oneBD: 36,776 vs
-        # 51,558) — the verdict survives both estimator rewrites.
+        # is R times the sequential one (counts mode switches by ensemble
+        # size, cli/_driver.resolve_run_axis).  Chosen by timing on the
+        # earlier accelerator; not yet measured on the H100.
         run_axis="sequential",
-        # radix-factorized TOF-synthesis one-hot: the simult-era 10-segment
-        # zero-degree spread expands the TOF histogram to M*Be*K = 80k
-        # values per run, making its one-hot the compare-bound stage once
-        # counts mode collapsed the per-sample work.  Same-session TPU A/B
-        # (out/tpu_ab_r3b, 2026-08-18): 54,273 (L=16) / 53,616 (L=8) vs
-        # 52,264 direct walker-steps/s.  Exact semantics (same bf16 weight
-        # rounding class).  oneBD keeps 0: its 25-bin expo-kernel windows
-        # measured a wash (51,669 vs 51,558).
+        # radix-factorized one-hot of the XLA TOF-histogram path: the
+        # 10-segment zero-degree spread expands the TOF histogram to
+        # M*Be*K = 5k values per run; L + ceil(n_bins/L) compares per
+        # sample instead of n_bins.  Exact semantics.  Chosen by timing on
+        # the earlier accelerator; not yet measured on the H100 (the GPU
+        # runs the fused kernel, ops/pallas_tof.py, for these windows).
         tof_hist_radix=16,
         n_samples=n_samples,
         # one-hot block peak memory scales as walker_chunk * n_runs * x_bins
@@ -166,7 +159,7 @@ class SimultFitProblem:
     # at the flagship scale (nearly draw-count-independent) — the dominant
     # source of ensemble acceptance decay.  'poisson' = the correct
     # Poisson(obs | rate=model) logpmf: same posterior information, logp
-    # noise sigma ~ 2 at 200k draws (measured; RESULTS_r2.md).
+    # noise sigma ~ 2 at 200k draws (measured).
     likelihood: str = "reference"
 
     @property

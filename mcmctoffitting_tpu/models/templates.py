@@ -9,9 +9,9 @@ coefficient-weighted templates (``buildModelTOF :256-267``), 35-dim theta =
 scale pinned to 1 (``compoundLnlike :336-346``), box prior with per-run
 scale limits (``:350-366``).
 
-TPU design notes: template generation reuses the shared forward-model
-pipeline (transport + MXU histograms) with a Uniform source; the model
-build is literally a (runs, n_bins, 32) x (32,) matvec — MXU food.
+Design notes: template generation reuses the shared forward-model
+pipeline (transport + one-hot histograms) with a Uniform source; the
+model build is literally a (runs, n_bins, 32) x (32,) matvec.
 Templates cache to CSV like the reference (``:406-450``).
 """
 from __future__ import annotations

@@ -19,7 +19,7 @@ on the sampled parameters** — theta only moves the initial-energy draw.  So:
    t-moments (S0..S3) to grid cells.
 3. (run time, device) Per sample: ONE arithmetic fine-cell index + one-hot
    moment accumulation shared by ALL x-slices (F compares per sample instead
-   of M * Be + transport), then grid = S @ A — a single static MXU matmul.
+   of M * Be + transport), then grid = S @ A — a single static matmul.
 
 Accuracy: interior fine cells are exact up to the cubic fit of g_m over a
 ~1-2 keV cell (error O(h^4 g''''), orders below the XS table's 1%).  Fine
@@ -305,7 +305,7 @@ def expected_moments(table: E0GridTable, beam_e, e_loss, scale, s,
     (O(h^4)); at F = 1024, h ~ 1e-3 in t units, both sit below f32
     rounding of the contraction — measured |delta logp| ~ 1e-3 across
     posterior-typical thetas (tests/test_e0grid.py), ~50x below the
-    pinned F-margin (RESULTS_r3.md "Hardcore fine-grid frontier").  Cost:
+    pinned F-margin (artifacts/hardcore_f_logp_shift.json).  Cost:
     halves the ndtr chain, the dominant counts-mode stage.
 
     Returns (S, e0_mean): S is (4, F) expected moments scaled to
@@ -332,8 +332,7 @@ def expected_moments(table: E0GridTable, beam_e, e_loss, scale, s,
     # adjacent cells SHARE an edge: evaluate the ndtr chain once on the
     # (n_rows, F+1) edge grid and difference, instead of per-cell lo/hi
     # pairs (which XLA does not CSE across the overlapping slices) —
-    # halves the dominant transcendental stage (RESULTS_r3.md stage
-    # split).  Same expression tree per edge as partial(), so values are
+    # halves the dominant transcendental stage.  Same expression tree per edge as partial(), so values are
     # unchanged.
     if closure not in ("exact", "cell"):
         raise ValueError(f"unknown moment closure {closure!r} "
@@ -400,11 +399,10 @@ def poissonized_moments(key, table: E0GridTable, beam_e, e_loss, scale, s,
 
     The faithful MC estimator's per-fine-cell moment sums decompose as
     S_k[f] = count_f * m_k[f] + within-cell fluctuation, where count_f is
-    the cell occupancy and m_k[f] = E[t^k | cell f].  Measured on v5e, the
-    per-sample pipeline that produces them (threefry + ndtri + exp draws,
-    then the F-wide one-hot and its M=4-row MXU dot) sits within ~1.2x of
-    its op-mix roofline (tools/tpu_sorted_probe.py; RESULTS_r3.md) — the
-    faithful path cannot go much faster.  This estimator keeps the count
+    the cell occupancy and m_k[f] = E[t^k | cell f].  The per-sample
+    pipeline that produces them (threefry + ndtri + exp draws, then the
+    F-wide one-hot and its 4-row dot) costs O(N * F) per eval.  This
+    estimator keeps the count
     randomness and replaces the within-cell part with its conditional
     expectation (both closed-form, from the same partial-moment machinery
     as :func:`expected_moments`):
@@ -436,7 +434,7 @@ def poissonized_moments(key, table: E0GridTable, beam_e, e_loss, scale, s,
     """
     import jax.numpy as jnp
 
-    from .poisson import poisson_auto
+    from .poisson import poisson_ptrs
 
     sbar, _ = expected_moments(table, beam_e, e_loss, scale, s,
                                n_samples, truncated, closure)  # (4, F)
@@ -471,12 +469,8 @@ def poissonized_moments(key, table: E0GridTable, beam_e, e_loss, scale, s,
 
     lam_all = jnp.concatenate(
         [lam, lam_below[None], lam_above[None]])
-    # exact uniforms-only sampler: 1.27x jax.random.poisson on v5e at the
-    # production shape (and PRNG-impl-agnostic); tools/tpu_poisson_probe.py
-    # backend-dispatched: fused Pallas kernel on TPU (2.1x the XLA PTRS
-    # at the production shape; the counts path is Poisson-bound), exact
-    # uniforms-only XLA sampler elsewhere — see ops/poisson.poisson_auto
-    counts = poisson_auto(key, lam_all).astype(jnp.float32)
+    # exact uniforms-only sampler (PRNG-impl-agnostic; ops/poisson.py)
+    counts = poisson_ptrs(key, lam_all).astype(jnp.float32)
     moments = counts[None, : table.n_fine] * jnp.where(
         lam[None, :] > 0, m, 0.0)                             # (4, F)
 

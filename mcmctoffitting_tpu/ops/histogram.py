@@ -1,13 +1,14 @@
-"""Fixed-range weighted histograms, built for the MXU.
+"""Fixed-range weighted histograms as one-hot matmuls.
 
 The reference's hot loops are numpy histograms over 1e4-2e5 Monte-Carlo
 samples (``tests/simultFit.py:263-265``, ``tests/csi_oneBD.py:463``) plus a
 Python ``ndenumerate`` TOF-synthesis loop (``tests/simultFit.py:286-296``).
-On TPU, scatter-adds serialize badly; instead we compute the histogram as a
-**one-hot matmul**: bin indices -> one-hot block (chunk x n_bins) contracted
-against the weights on the MXU.  Chunking via ``lax.scan`` keeps the one-hot
-block in VMEM (never materialized in HBM), so the op is compute-bound on the
-systolic array rather than bandwidth/scatter-bound.
+Here the histogram is a **one-hot matmul**: bin indices -> one-hot block
+(chunk x n_bins) contracted against the weights, chunked by ``lax.scan``
+to bound the block's memory.  The design was chosen on the earlier
+accelerator, where scatter-adds serialized; on the H100 the TOF stage's
+XLA scatter-add measured faster (PERF.md), and picking one path per stage
+is open work (ROADMAP Speed 2).
 
 Semantics match ``np.histogram(values, bins=n, range=(lo, hi), weights=w)``:
 out-of-range samples are dropped, and values exactly equal to ``hi`` land in
@@ -24,25 +25,23 @@ def _scan_onehot(idx, w, n_bins: int, chunk: int, radix: int = 0):
     """Chunked one-hot contraction: (..., N) indices + weights ->
     (..., n_bins) histogram.  Shared engine of the histogram ops.
 
-    Precision note: the dot runs at DEFAULT matmul precision (bf16 inputs,
-    f32 accumulation on TPU).  One-hot entries are exact in bf16; only the
-    weights are rounded (~0.4% relative), far below the Monte-Carlo noise
-    of the sampled spectra, and 'highest' would multiply MXU passes ~6x.
+    Precision note: the dot runs at DEFAULT matmul precision — on the GPU
+    an f32 dot then runs in TF32 (10-bit mantissa, f32 accumulation).
+    One-hot entries are exact; only the weights are rounded (<= 2^-11
+    relative per weight), far below the Monte-Carlo noise of the sampled
+    spectra.
     Deterministic keV-scale lookups must NOT use this path (see
     StoppingTable.eval_stopped, which pins precision='highest').
 
     ``radix`` L > 0 factorizes the one-hot: idx = q * L + r, and the
     histogram becomes the (..., Q, L) outer contraction of two SMALL
     one-hots (oh_q: Q = ceil(n_bins/L) compares/sample, oh_r: L
-    compares/sample) instead of one n_bins-wide block — the VPU compare /
+    compares/sample) instead of one n_bins-wide block — the compare /
     materialization cost per sample drops from n_bins to L + Q (~4x at
     n_bins = 70, L = 8).  Exact: each sample hits exactly one (q, r)
-    cell, and the weight enters one bf16-rounded product exactly as in
-    the direct path.  This is the single-channel sibling of
-    ``ForwardSpec.moment_radix`` — THERE the 4-channel expansion made it
-    measurably slower; the plain TOF-synthesis histogram has one channel,
-    where the compare savings survive (measured knob, see
-    ForwardSpec.tof_hist_radix)."""
+    cell, and the weight enters one rounded product exactly as in the
+    direct path.  The single-channel sibling of
+    ``ForwardSpec.moment_radix`` (see ForwardSpec.tof_hist_radix)."""
     n = idx.shape[-1]
     chunk = min(chunk, n)
     n_chunks = -(-n // chunk)
@@ -87,7 +86,7 @@ def _scan_onehot(idx, w, n_bins: int, chunk: int, radix: int = 0):
     def body(acc, inputs):
         i_blk, w_blk = inputs  # (..., chunk)
         onehot = (i_blk[..., None] == bins).astype(w_blk.dtype)
-        # (..., chunk) x (..., chunk, n_bins) -> (..., n_bins) on the MXU
+        # (..., chunk) x (..., chunk, n_bins) -> (..., n_bins)
         acc = acc + jax.lax.dot_general(
             w_blk[..., None, :], onehot,
             dimension_numbers=(((w_blk.ndim,), (onehot.ndim - 2,)),
@@ -120,8 +119,8 @@ def weighted_histogram(values, lo: float, hi: float, n_bins: int,
       values: (..., N) sample values.
       weights: (..., N) or None (counts).
       chunk: static chunk length for the scanned one-hot matmul.
-      method: 'onehot' (MXU matmul, default) or 'scatter' (XLA scatter-add,
-        kept for cross-checking and CPU testing).
+      method: 'onehot' (matmul, default) or 'scatter' (XLA scatter-add,
+        kept for cross-checking; not on the production path).
       radix: 0 = direct one-hot; L > 0 = factorized one-hot (see
         ``_scan_onehot``).
 
@@ -183,7 +182,7 @@ def weighted_histogram_multi_window(values, windows, weights, *,
 def delta_moment_histogram(values, lo: float, hi: float, n_bins: int,
                            n_moments: int = 4, *, chunk: int = 8192,
                            extra_weight=None):
-    """Within-bin-offset moment histograms, one MXU pass per chunk.
+    """Within-bin-offset moment histograms, one matmul per chunk.
 
     For each bin j accumulates M_p[j] = sum_{s in bin j} delta_s^p for
     p = 0..n_moments-1, where delta_s = (v_s - center_j)/binwidth in

@@ -1,10 +1,10 @@
 """Spline/interpolation primitives.
 
 Host-side (numpy, f64) coefficient construction + device-side (jnp, f32)
-evaluation.  This split is deliberate TPU design: spline *fitting* is a tiny
-tridiagonal solve done once at model-build time on the host; spline
-*evaluation* is the hot path and lowers to a gather + fused Horner polynomial
-on the VPU, with no data-dependent control flow.
+evaluation.  This split is deliberate accelerator design: spline *fitting*
+is a tiny tridiagonal solve done once at model-build time on the host;
+spline *evaluation* is the hot path and lowers to a gather + fused Horner
+polynomial, with no data-dependent control flow.
 
 Replaces the reference's ``scipy.interpolate.interp1d(kind='cubic')``
 (``utilities/utilities.py:412``) and the 1-D sections of
@@ -158,7 +158,7 @@ class UniformCubicSpline1D:
     it, re-centered at the cell start.  Evaluation then needs NO
     ``searchsorted`` — the segment index is pure arithmetic
     (``floor((t - lo)/step)``), leaving one small-table gather + Horner.
-    On TPU this avoids the binary-search while-loop/gather chain entirely.
+    This avoids the binary-search while-loop/gather chain entirely.
     Values are exactly equal to the source spline (up to f64 re-centering
     round-off).
     """

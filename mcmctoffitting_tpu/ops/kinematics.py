@@ -1,6 +1,6 @@
 """Two-body reaction kinematics and time-of-flight primitives.
 
-TPU-native (pure jnp, shape-polymorphic, f32-friendly) equivalents of the
+JAX-native (pure jnp, shape-polymorphic, f32-friendly) equivalents of the
 reference kernels ``getDDneutronEnergy`` (``utilities/utilities.py:48-62``)
 and ``getTOF`` (``utilities/utilities.py:64-73``).  Both are closed-form and
 fully vectorized; under jit they fuse into surrounding elementwise chains on

@@ -1,45 +1,39 @@
-"""Pallas TPU kernel: fused zero-degree-spread TOF-synthesis histograms.
+"""Pallas (Triton) kernel: fused TOF-synthesis histograms on the GPU.
 
-WHY: once the counts-mode Poisson stage moved into its fused kernel
-(ops/pallas_poisson.py), the joint-logp decomposition
-(tools/tpu_joint_probe.py, r4) shows the remaining cost is the TOF
-synthesis stage — 3.4 of the 5.9 ms/iter at W=1024.  The XLA path
-(models/forward.py `tof_spectra_multi` + ops/histogram.py) expands the
-10-segment zero-degree spread to a (runs, x_bins, eD_bins, K) sample
-tensor, then histograms it through a scanned one-hot contraction whose
-operands (the radix one-hot blocks plus the scan's chunked xs copies)
-all round-trip HBM: ~1 MB of one-hot traffic per walker per eval,
-~2 GB/eval at W=1024 — pure bandwidth, no compute to hide it behind.
+The TOF-synthesis stage bins every (x-bin, eD-bin) lattice cell, spread
+over K zero-degree transit segments, into each run's TOF window:
 
-This kernel fuses the whole stage per walker tile, VMEM-resident:
+  for each run r (static window), lattice cell s, segment k:
+      v   = base_tof[r, s] + zt[s, k]     # zero-degree transit offset
+      w   = draws[r, s] * zw[s, k]        # segment weight
+      hist[r, bin(v)] += w                # np.histogram semantics
 
-  for each run r (static windows), segment k:
-      v   = base_tof + zt[k]          # zero-degree transit offset
-      w   = draws * zw[k]             # segment weight
-      idx = np.histogram bin index (per-run static window)
-      hist[r] += radix-factorized one-hot contraction (MXU)
+XLA's path (``ops/histogram.weighted_histogram_multi_window``) first
+expands the (R, M*Be*K) sample tensor, then contracts scanned one-hot
+blocks; both round-trip device memory.  This kernel reads only
+``base_tof`` and ``draws`` (2 x R x M x Be f32 per walker) plus the
+shared (K, M*Be) spread tables, and writes the (R, n_pad) histograms.
 
-HBM traffic drops to the inputs themselves — base_tof + draws
-(2 x R x M x Be f32 = 16 KB/walker for the simultFit lattice) and the
-(R, n_pad) output — everything in between lives in VMEM/registers.  The
-one-hot is radix-16 factorized exactly like the XLA path's
-``tof_hist_radix`` (ops/histogram.py `_scan_onehot`): per sample a
-Q=8-channel coarse one-hot (bf16, weight-carrying) contracts against an
-L=16 fine one-hot on the MXU with f32 accumulation, covering n_pad <=
-128 bins.
+Layout: one program per (walker, run) — blocks run in parallel and in
+no order, so nothing carries across the grid.  Inside a program the
+lattice is walked in ``blk``-sample slices; for each slice the K-segment
+loop is unrolled and a (blk, <= 128-bin) block of partial sums is
+accumulated in registers by compare-select (one per sample and bin), then
+reduced over the slice axis once at the end — no atomics, so the result
+is deterministic.
 
-NUMERICS CONTRACT: identical bin-index arithmetic and np.histogram edge
-semantics as ``weighted_histogram_multi_window`` (same f32 (v-lo)*scale,
-clip-to-last-true-bin, value == hi lands in the last bin), and the same
-weight rounding class (weights enter ONE bf16-rounded product; f32
-accumulation).  Only the f32 ACCUMULATION ORDER differs (segment-major
-here vs chunk-major in XLA), so results agree to f32 summation noise,
-not bitwise — pinned by tests/test_pallas_tof.py in interpret mode and
-the on-chip A/B in tools/.
+Numerics: identical bin-index arithmetic and np.histogram edge semantics
+as the XLA path (same f32 ``(v - lo) * scale``, clip to the last true
+bin, ``v == hi`` lands in the last bin, out-of-range weights dropped).
+Weights and sums stay f32 — the XLA path's default-precision one-hot dot
+may round the weights to TF32 (10-bit mantissa) on the GPU — so the two
+agree to that rounding, and the kernel agrees with an f64 np.histogram to
+f32 summation error.
 
 Reference semantics being reproduced: the TOF-synthesis ndenumerate loop
-``/root/reference/tests/simultFit.py:286-296`` with the 10-segment
-zero-degree spread of ``/root/reference/utilities/utilities.py:154``.
+``tests/simultFit.py:286-296`` with the 10-segment zero-degree spread of
+``utilities/utilities.py:154``; oneBD's expo-kernel presets are the K = 1
+case.
 """
 from __future__ import annotations
 
@@ -49,108 +43,92 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_LANE = 128
-_Q = 8            # coarse radix channels (sublane axis of the A operand)
-_L = 16           # fine radix width     (lane axis of the one-hot operand)
-# _Q * _L = 128 = the bin-capacity ceiling of one kernel pass
-
-
-def _tof_kernel(win_consts, n_runs, sp, tile, n_seg,
-                base_ref, draws_ref, zt_ref, zw_ref, out_ref):
-    """One walker tile: (tile, R*sp) lattice blocks -> (tile, R, Q, L).
-
-    win_consts: per-run (lo, hi, scale, nb1) np.float32/int python
-    scalars (static).  The run loop is static-unrolled (R <= a handful);
-    the segment loop is a fori_loop so each iteration REUSES one set of
-    VMEM temporaries — unrolling it stacked 40 iterations of one-hot
-    blocks into a 126 MB scoped-vmem ask (measured OOM at the flagship
-    shape).  The fine one-hot is built TRANSPOSED, (tile, L, sp), so its
-    minor dim is the sp lanes — the (sp, L) orientation lane-pads L=16
-    up to 128 and 8x-inflates the block.
-    """
-    q_iota = jax.lax.broadcasted_iota(jnp.int32, (tile, _Q, sp), 1)
-    l_iota = jax.lax.broadcasted_iota(jnp.int32, (tile, _L, sp), 1)
-    for r in range(n_runs):
-        lo, hi, scale, nb1 = win_consts[r]
-        base = base_ref[:, r * sp:(r + 1) * sp]          # (tile, sp)
-        w0 = draws_ref[:, r * sp:(r + 1) * sp]
-
-        def body(k, acc):
-            # dynamic-index the REF (mosaic lowers ref loads with pl.ds;
-            # dynamic_slice on loaded values is unimplemented)
-            ztk = zt_ref[pl.ds(k, 1), :]                 # (1, sp)
-            zwk = zw_ref[pl.ds(k, 1), :]
-            v = base + ztk
-            wt = w0 * zwk
-            # np.histogram semantics (== weighted_histogram_multi_window):
-            # clip(floor((v-lo)*scale), 0, n_bins-1) keeps v == hi in the
-            # last true bin; out-of-range weights zeroed by the mask
-            u = (v - lo) * scale
-            idx = jnp.clip(jnp.floor(u).astype(jnp.int32), 0, nb1)
-            ok = jnp.logical_and(v >= lo, v <= hi)
-            wt_m = jnp.where(ok, wt, 0.0)
-            q = jax.lax.shift_right_logical(idx, 4)      # idx // 16
-            rr = jnp.bitwise_and(idx, 15)                # idx % 16
-            # weight-carrying coarse channels (bf16: the SAME single
-            # rounding of the weight as the XLA radix dot's default-
-            # precision matmul) x fine one-hot, contracted on the MXU
-            a = jnp.where(q[:, None, :] == q_iota,
-                          wt_m[:, None, :], 0.0).astype(jnp.bfloat16)
-            oh_t = (rr[:, None, :] == l_iota).astype(jnp.bfloat16)
-            return acc + jax.lax.dot_general(
-                a, oh_t,
-                dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32)      # (tile, Q, L)
-
-        acc0 = jnp.zeros((tile, _Q, _L), jnp.float32)
-        out_ref[:, r] = jax.lax.fori_loop(0, n_seg, body, acc0)
+MAX_BINS = 128    # widest TOF window one program accumulates in registers
+# (blk, nb) partial-sum block per program, and one warp per 32 slice rows
+# (2..8): the best of a slice x warps sweep on an H100 at both the simult
+# (nb = 128) and the oneBD -hardcore (nb = 32) shapes (PERF.md)
+_ACC_ELEMS = 8192
 
 
-@functools.partial(
-    jax.jit, static_argnames=("win_consts", "n_runs", "sp", "tile",
-                              "n_seg", "interpret"))
-def _tof_hist_pallas(base, draws, zt_lane, zw_lane, *, win_consts,
-                     n_runs, sp, tile, n_seg, interpret):
-    """base/draws (W, R*sp) f32 -> (W, R, Q, L) f32 histograms."""
-    w = base.shape[0]
-    w_pad = -w % tile
-    if w_pad:
-        pad = ((0, w_pad), (0, 0))
-        # padded walkers histogram only zero weights -> zero rows
-        base = jnp.pad(base, pad)
-        draws = jnp.pad(draws, pad)
-    wp = base.shape[0]
-    kern = functools.partial(_tof_kernel, win_consts, n_runs, sp, tile,
-                             n_seg)
-    out = pl.pallas_call(
+def _tile(nb: int):
+    """(blk, num_warps) for an ``nb``-bin window."""
+    blk = max(16, _ACC_ELEMS // nb)
+    return blk, min(8, max(2, blk // 32))
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _win_scalar(r, values, dtype):
+    """Select ``values[r]`` for a traced run index (static, short list)."""
+    out = jnp.asarray(values[0], dtype)
+    for i in range(1, len(values)):
+        out = jnp.where(r == i, jnp.asarray(values[i], dtype), out)
+    return out
+
+
+def _tof_kernel(base_ref, draws_ref, zt_ref, zw_ref, out_ref, *,
+                win_consts, n_seg, sp, blk, nb):
+    """One (walker, run) program: (sp,) lattice -> (nb,) histogram."""
+    r = pl.program_id(1)
+    lo = _win_scalar(r, [c[0] for c in win_consts], jnp.float32)
+    hi = _win_scalar(r, [c[1] for c in win_consts], jnp.float32)
+    scale = _win_scalar(r, [c[2] for c in win_consts], jnp.float32)
+    nb1 = _win_scalar(r, [c[3] for c in win_consts], jnp.int32)
+    bins = jax.lax.broadcasted_iota(jnp.int32, (1, nb), 1)
+
+    def body(j, acc):
+        start = pl.multiple_of(j * blk, blk)
+        base = base_ref[pl.ds(start, blk)]
+        w0 = draws_ref[pl.ds(start, blk)]
+        for k in range(n_seg):
+            v = base + zt_ref[pl.ds(k * sp + start, blk)]
+            wt = w0 * zw_ref[pl.ds(k * sp + start, blk)]
+            idx = jnp.clip(jnp.floor((v - lo) * scale).astype(jnp.int32),
+                           0, nb1)
+            wt = jnp.where((v >= lo) & (v <= hi), wt, 0.0)
+            hit = idx[:, None] == bins                   # (blk, nb)
+            acc = acc + jnp.where(hit, wt[:, None], 0.0)
+        return acc
+
+    # the (blk, nb) partial sums stay thread-local across the whole walk;
+    # the one cross-thread reduction over the slice axis comes last
+    acc = jax.lax.fori_loop(0, sp // blk, body,
+                            jnp.zeros((blk, nb), jnp.float32))
+    out_ref[...] = jnp.sum(acc, axis=0)
+
+
+@functools.partial(jax.jit, static_argnames=("win_consts", "n_seg", "sp",
+                                             "blk", "nb", "interpret",
+                                             "num_warps"))
+def _tof_hist_pallas(base, draws, zt_flat, zw_flat, *, win_consts, n_seg,
+                     sp, blk, nb, interpret, num_warps):
+    """base/draws (W, R, sp) f32; zt/zw (K*sp,) -> (W, R, nb) f32."""
+    n_w, n_runs = base.shape[0], base.shape[1]
+    kern = functools.partial(_tof_kernel, win_consts=win_consts,
+                             n_seg=n_seg, sp=sp, blk=blk, nb=nb)
+    row = pl.BlockSpec((None, None, sp), lambda w, r: (w, r, 0))
+    table = pl.BlockSpec((n_seg * sp,), lambda w, r: (0,))
+    return pl.pallas_call(
         kern,
-        grid=(wp // tile,),
-        in_specs=[
-            pl.BlockSpec((tile, n_runs * sp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, n_runs * sp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_seg, sp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_seg, sp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, n_runs, _Q, _L),
-                               lambda i: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((wp, n_runs, _Q, _L), jnp.float32),
+        grid=(n_w, n_runs),
+        in_specs=[row, row, table, table],
+        out_specs=pl.BlockSpec((None, None, nb), lambda w, r: (w, r, 0)),
+        out_shape=jax.ShapeDtypeStruct((n_w, n_runs, nb), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(base, draws, zt_lane, zw_lane)
-    return out[:w]
+        name="tof_hist_segments",
+    )(base, draws, zt_flat, zw_flat)
 
 
 @functools.lru_cache(maxsize=None)
 def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
-                           n_seg: int, *, tile: int = 32,
-                           interpret: bool = False):
-    """Build the (cached, vmap-collapsing) fused TOF-histogram op.
+                           n_seg: int, *, interpret: bool = False):
+    """Build the (cached, vmap-collapsing, differentiable) fused op.
 
     windows: static tuple of TofWindow (per run; max n_bins <= 128).
     m_bins/be_bins: x / eD lattice sizes; n_seg: zero-degree segments.
@@ -159,36 +137,37 @@ def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
     base_tof/draws are (R, m_bins, be_bins) f32 and zt/zw are the
     (be_bins, n_seg) spread tables.  Under ``vmap`` (the sampler's
     walker batch — or nested batches) every leading axis collapses into
-    the kernel's walker-tile grid, like ops/pallas_poisson.py.
+    the kernel's walker grid axis.
     """
     n_runs = len(windows)
     n_pad = max(w.n_bins for w in windows)
-    if n_pad > _Q * _L:
-        raise ValueError(f"fused TOF kernel covers <= {_Q * _L} bins, "
+    if n_pad > MAX_BINS:
+        raise ValueError(f"fused TOF kernel covers <= {MAX_BINS} bins, "
                          f"got {n_pad}")
+    nb = max(16, _next_pow2(n_pad))
+    blk, num_warps = _tile(nb)
     n0 = m_bins * be_bins
-    sp = -(-n0 // _LANE) * _LANE
+    sp = -(-n0 // blk) * blk
     win_consts = tuple(
         (float(np.float32(w.lo)), float(np.float32(w.hi)),
          float(np.float32(w.n_bins / (w.hi - w.lo))), int(w.n_bins - 1))
         for w in windows)
 
     def _pack(arr, fill):
-        # (W, R, M, Be) -> (W, R*sp) with per-run lane padding; the fill
-        # puts padding lanes out of every window so they weight nothing
-        w = arr.shape[0]
-        flat = arr.reshape(w, n_runs, n0)
+        # (W, R, M, Be) -> (W, R, sp); the fill puts padding cells out of
+        # every window (base) or gives them zero weight (draws)
+        flat = arr.reshape(arr.shape[0], n_runs, n0)
         if sp != n0:
             flat = jnp.pad(flat, ((0, 0), (0, 0), (0, sp - n0)),
                            constant_values=fill)
-        return flat.reshape(w, n_runs * sp)
+        return flat
 
     def _lane_table(t):
-        # (Be, K) -> (K, sp): lane s = m*Be + b carries t[b, k]
+        # (Be, K) -> (K * sp,): entry k*sp + m*Be + b carries t[b, k]
         full = jnp.tile(t.T, (1, m_bins))                # (K, M*Be)
         if sp != n0:
             full = jnp.pad(full, ((0, 0), (0, sp - n0)))
-        return full.astype(jnp.float32)
+        return full.astype(jnp.float32).reshape(-1)
 
     @jax.custom_batching.custom_vmap
     def fn(base_tof, draws, zt, zw):
@@ -200,9 +179,8 @@ def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
             _pack(base_tof.astype(jnp.float32), 1.0e9),
             _pack(draws.astype(jnp.float32), 0.0),
             _lane_table(zt), _lane_table(zw),
-            win_consts=win_consts, n_runs=n_runs, sp=sp, tile=tile,
-            n_seg=n_seg, interpret=interpret)
-        out = out.reshape(out.shape[0], n_runs, _Q * _L)[..., :n_pad]
+            win_consts=win_consts, n_seg=n_seg, sp=sp, blk=blk, nb=nb,
+            interpret=interpret, num_warps=num_warps)[..., :n_pad]
         return out[0] if squeeze else out
 
     @fn.def_vmap
@@ -219,9 +197,8 @@ def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
             zt = jax.lax.index_in_dim(zt, 0, 0, keepdims=False)
         if wb:
             zw = jax.lax.index_in_dim(zw, 0, 0, keepdims=False)
-        # collapse ALL leading axes and recurse through the custom-vmap
-        # function so nested vmap levels collapse too (the pallas-poisson
-        # lesson: JAX's default pallas batching cannot batch the grid)
+        # collapse ALL leading axes into the walker grid axis and recurse
+        # through the custom-vmap function so nested vmaps collapse too
         flat_b = base_tof.reshape((-1,) + base_tof.shape[-3:])
         flat_d = draws.reshape((-1,) + draws.shape[-3:])
         out = fn(flat_b, flat_d, zt, zw)                 # (Wtot, R, n_pad)
@@ -232,10 +209,10 @@ def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
     # bin assignment (floor/compare of base_tof + zt) has zero gradient
     # a.e. — exactly the gradient the XLA expand-then-contract path gets,
     # where the one-hot comparisons are non-differentiable constants.  A
-    # custom VJP (forward = the Pallas kernel, backward = one gather of
-    # the output cotangent at each sample's bin) makes the fused stage
-    # usable under the gradient samplers (-sampler nuts|hmc on the
-    # expected forward), which reverse-differentiate the whole spectrum.
+    # custom VJP (forward = the kernel, backward = one gather of the
+    # output cotangent at each sample's bin) makes the fused stage usable
+    # under the gradient samplers (-sampler nuts|hmc on the expected
+    # forward), which reverse-differentiate the whole spectrum.
     @jax.custom_vjp
     def fn_ad(base_tof, draws, zt, zw):
         return fn(base_tof, draws, zt, zw)
@@ -246,8 +223,7 @@ def make_tof_hist_segments(windows, m_bins: int, be_bins: int,
     def _fn_bwd(res, gbar):
         base_tof, zt, zw = res
         # shapes here are the UNBATCHED contract — (R, M, Be) / (R, n_pad)
-        # — because vmap batches custom_vjp rules itself (the sampler's
-        # walker/chain axes never reach this body unbatched).
+        # — because vmap batches custom_vjp rules itself
         grads = []
         for r in range(n_runs):
             lo, hi, scale, nb1 = win_consts[r]

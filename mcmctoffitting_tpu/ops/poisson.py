@@ -1,11 +1,10 @@
 """Exact Poisson sampling from plain uniforms (PTRS + CDF inversion).
 
-Why this exists: counts mode's per-run cost is dominated by Poisson cell
-draws (RESULTS_r3.md stage split), and ``jax.random.poisson`` is
-implemented for the threefry generator ONLY — it both carries a generic
-rejection loop and blocks the TPU's hardware ``rbg`` PRNG for the whole
-counts path.  This module samples Poisson exactly using nothing but
-``jax.random.uniform``, so it runs (and vectorizes) under any PRNG impl.
+Why this exists: counts mode draws F + 2 Poisson cell counts per run and
+evaluation, and ``jax.random.poisson`` is implemented for the threefry
+generator ONLY (it also carries a generic rejection loop).  This module
+samples Poisson exactly using nothing but ``jax.random.uniform``, so it
+runs (and vectorizes) under any PRNG impl (``-prng``).
 
 Algorithms (both exact, no normal approximation anywhere):
 
@@ -26,48 +25,12 @@ the counts estimator; see ops/e0grid.poissonized_moments).
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 from jax.scipy.special import gammaln
 
-__all__ = ["poisson_ptrs", "poisson_auto"]
+__all__ = ["poisson_ptrs"]
 
-
-def poisson_auto(key, lam):
-    """Backend dispatch for the counts-mode Poisson stage.
-
-    TPU: the fused Pallas kernel (ops/pallas_poisson.py) — measured
-    2.1x the XLA path at the production (W=1024, F+2) shape (1.067 ->
-    0.507 ms/iter, tools/tpu_poisson_ab.py: hardware PRNG bits +
-    shifted-Stirling gammaln, one VMEM-resident kernel); the counts
-    path is Poisson-bound (tools/tpu_chain_probe3.py), so this is the
-    headline lever.  CPU/other backends: the XLA path below.
-    Override with MCMCTOF_POISSON=xla|pallas.
-
-    STREAM NOTE: both backends sample the exact Poisson distribution but
-    on different random streams (threefry vs the TPU hardware PRNG), so
-    chains are backend-reproducible, not cross-backend-reproducible —
-    the same documented contract as ``-prng rbg``.  The kernel seeds per
-    walker-tile, so on TPU the mesh-vs-local bitwise guarantee of the
-    XLA sampler relaxes to statistical equality (tile boundaries move
-    with the sharding); CPU validation suites keep the XLA path and its
-    bitwise guarantees.
-    """
-    choice = os.environ.get("MCMCTOF_POISSON", "auto")
-    use_pallas = (jax.default_backend() == "tpu" if choice == "auto"
-                  else choice == "pallas")
-    if use_pallas:
-        from .pallas_poisson import poisson_pallas
-        if jnp.issubdtype(key.dtype, jax.dtypes.prng_key):
-            data = jax.random.key_data(key)
-        else:
-            data = key                      # raw (2,) uint32 PRNGKey
-        seed = data.reshape(-1)[:2].astype(jnp.uint32)
-        return poisson_pallas(seed, lam).astype(
-            jnp.promote_types(lam.dtype, jnp.float32))
-    return poisson_ptrs(key, lam)
 
 _SMALL_CUTOFF = 10.0
 _INV_ROUNDS = 48
@@ -81,17 +44,16 @@ def _ptrs_log_pmf(k, lam, loglam):
     O(lam*log(lam))-magnitude terms to produce an O(1) result: at
     lam = 1e4 the f32 rounding of the ~9e4-magnitude operands is ~1e-2
     absolute and the acceptance test visibly skews (measured +2% variance
-    inflation at lam = 1e4, +3% at 1e5 — artifacts/
-    pallas_poisson_validation.json, first run).  Rewriting around
+    inflation at lam = 1e4, +3% at 1e5).  Rewriting around
     d = k - lam (EXACT in f32 by Sterbenz: k, lam within a factor of 2):
 
         log pmf = d - k*log1p(d/lam) - log(2*pi*k)/2 - 1/(12k) + 1/(360k^3)
 
     keeps every intermediate O(d) — but XLA's f32 ``log1p`` is itself
-    only ~1e-6 ABSOLUTE (~700 ulp at t ~ 0.025; measured on both the CPU
-    and TPU backends), and ``k *`` amplifies that to ~0.2 at lam = 1e5:
-    a +-20% oscillating acceptance skew in the slow path that deflated
-    the sampled variance by 1.3% (artifacts/, second run).  So for small
+    only ~1e-6 ABSOLUTE (~700 ulp at t ~ 0.025, measured on the CPU
+    backend), and ``k *`` amplifies that to ~0.2 at lam = 1e5: a +-20%
+    oscillating acceptance skew in the slow path that deflated the
+    sampled variance by 1.3%.  So for small
     t the log1p is expanded in-place:
 
         d - k*log1p(t) = -d^2/lam - k*r,

@@ -1,10 +1,10 @@
 """Ion stopping power (Bethe) and deuteron energy-loss transport.
 
-TPU-native rebuild of ``utilities/ionStopping.py``:
+JAX rebuild of ``utilities/ionStopping.py``:
 
 * :class:`BetheStopping` — the multi-material simple Bethe dE/dx
   (``utilities/ionStopping.py:34-97``), as a frozen dataclass whose materials
-  are baked into jnp constants; evaluation is pure elementwise VPU work.
+  are baked into jnp constants; evaluation is pure elementwise work.
 * :func:`rk4_transport` — fixed-step RK4 integration of dE/dx over the gas
   cell for an entire batch of samples at once.  Replaces the reference's
   per-call ``scipy.integrate.ode('dopri5')`` (``tests/simultFit.py:256-258``)
@@ -166,7 +166,7 @@ def rk4_transport(dedx_fn, e0, x_eval, n_substeps: int = 4,
 class StoppingTable:
     """Precomputed E(E0, x) transport table with cubic-spline E0 lookup.
 
-    TPU-native ``betheApprox`` (``utilities/ionStopping.py:102-136``): the
+    Device-side ``betheApprox`` (``utilities/ionStopping.py:102-136``): the
     table is built once (host, f64, dense RK4) on the same grid the reference
     uses — ``np.arange(lo, hi, step)`` E0 rows by x-bin-center columns — and
     per-sample evaluation is a not-a-knot cubic spline in E0 for every x
@@ -207,16 +207,16 @@ class StoppingTable:
         but batched over all samples in one shot.
 
         method='onehot' (default): the per-sample spline-coefficient lookup
-        is a one-hot MXU matmul against the (segments, 4*M) coefficient
-        matrix — gathers serialize badly on TPU (measured ~100x the rest of
-        the forward model in round 1), and with exactly one nonzero per
-        one-hot row the matmul is bit-identical to the gather.
+        is a one-hot matmul against the (segments, 4*M) coefficient
+        matrix (chosen on the earlier accelerator, where gathers were
+        slow; not yet re-decided on the H100), and with exactly one
+        nonzero per one-hot row the matmul is bit-identical to the gather.
         method='gather': the direct lookup (CPU/debug path).
         """
         e = jnp.asarray(e_zero)
         c = jnp.asarray(self.coeffs, dtype=e.dtype)  # (4, G-1, M)
         # the E0 grid is uniform (np.arange) -> arithmetic segment index,
-        # no searchsorted (binary-search gathers are slow on TPU)
+        # no searchsorted (no binary-search loop of gathers)
         lo = float(self.e0_grid[0])
         step = float(self.e0_grid[1] - self.e0_grid[0])
         n_seg = self.e0_grid.shape[0] - 1
@@ -228,10 +228,11 @@ class StoppingTable:
             m = self.x_centers.shape[0]
             # (N, G-1) @ (G-1, 4*M) -> (N, 4, M)
             cmat = jnp.moveaxis(c, 0, 1).reshape(n_seg, 4 * m)
-            # precision='highest': the default TPU matmul precision is bf16,
-            # which would round the keV-scale constant coefficients (~8 keV
-            # error); at full f32 the single-nonzero rows make this
-            # bit-identical to the gather
+            # precision='highest': a default-precision f32 matmul runs in
+            # TF32 on the GPU (bf16 elsewhere), which would round the
+            # keV-scale constant coefficients (keV-scale error); at full
+            # f32 the single-nonzero rows make this bit-identical to the
+            # gather
             c3, c2, c1, c0 = jnp.moveaxis(
                 jnp.dot(onehot, cmat, precision="highest",
                         preferred_element_type=jnp.float32).reshape(

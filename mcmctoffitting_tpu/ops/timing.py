@@ -1,6 +1,6 @@
 """Instrument timing-response kernels and their convolutions.
 
-TPU-native rebuild of the reference timing subsystem:
+JAX rebuild of the reference timing subsystem:
 
 * :class:`ExGaussianTiming` — exponentially-modified-Gaussian beam pulse
   shape with the roofit-fitted sigma=1.1910 ns, tau=1.0110 ns

@@ -1,6 +1,6 @@
 """d(d,n)3He zero-degree cross-section interpolation.
 
-TPU-native replacement for the reference ``ddnXSinterpolator``
+Device-side replacement for the reference ``ddnXSinterpolator``
 (``utilities/utilities.py:332-429``): identical 59-point sigma(E_d) table,
 not-a-knot cubic spline through it (same curve as scipy
 ``interp1d(kind='cubic')`` to round-off), and the same evaluate-time clamping

@@ -1,8 +1,8 @@
 """Device-mesh parallelism (walker sharding, replacing threads/MPIPool).
 
-``mesh``: single-host walker-axis sharding over local devices (ICI).
+``mesh``: single-host walker-axis sharding over local devices.
 ``distributed``: multi-host runtime wiring (``jax.distributed``) and
-global-mesh helpers — the DCN path replacing the reference's MPI pool.
+global-mesh helpers — the multi-host path replacing the reference's MPI pool.
 """
 
 from . import distributed  # noqa: F401

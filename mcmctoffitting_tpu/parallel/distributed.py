@@ -1,17 +1,18 @@
-"""Multi-host (DCN) execution: jax.distributed replaces the MPI pool.
+"""Multi-host execution: jax.distributed replaces the MPI pool.
 
 The reference scales past one node with ``emcee.utils.MPIPool`` — a
 master/worker task farm where worker ranks sit in ``pool.wait()`` and the
 master ships every per-walker lnprob evaluation over MPI
 (``tests/mpiTOFmodel.py:187-201``, ``tests/simultFit.py:688-706``).  The
-TPU-native replacement is multi-controller SPMD: every process runs the
-SAME program, ``jax.distributed.initialize`` wires the processes into one
-runtime, and the walker axis is sharded over the GLOBAL device mesh — the
-per-walker likelihood work runs on each process's local chips, and the only
-cross-host traffic is the collectives XLA derives from the shardings (the
-small half-ensemble all-gather of the stretch move), which ride ICI within
-a slice and DCN across slices.  There is no master, no task queue, and no
-hand-written communication backend.
+replacement is multi-controller SPMD: every process runs the SAME program,
+``jax.distributed.initialize`` wires the processes into one runtime, and
+the walker axis is sharded over the GLOBAL device mesh — the per-walker
+likelihood work runs on each process's local GPUs, and the only
+cross-device traffic is the collectives XLA derives from the shardings
+(the small half-ensemble all-gather of the move), which XLA hands to NCCL:
+NVLink between the GPUs of one host, the network between hosts.  There is
+no master, no task queue, and no hand-written communication backend.  One
+process driving all GPUs of a host needs none of this module.
 
 Environment-variable conventions (all optional; flags/args take priority):
 
@@ -19,10 +20,10 @@ Environment-variable conventions (all optional; flags/args take priority):
   MCMCTOF_NUM_PROCESSES total process count
   MCMCTOF_PROCESS_ID    this process's rank
 
-On real Cloud TPU pods ``jax.distributed.initialize()`` discovers all three
-automatically; the env vars exist for bare-metal/CPU bring-up (and the
-2-process virtual test, ``__graft_entry__.dryrun_multihost`` /
-``tests/test_distributed.py``).
+On plain GPU hosts nothing discovers these: give all three (e.g.
+``localhost:<free port>`` for processes on one host).  The CPU bring-up
+uses the same variables (the 2-process virtual test,
+``__graft_entry__.dryrun_multihost`` / ``tests/test_distributed.py``).
 """
 from __future__ import annotations
 
@@ -37,11 +38,11 @@ from .mesh import WALKER_AXIS, make_mesh
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Join this process into the multi-host runtime (DCN entry point).
+    """Join this process into the multi-host runtime.
 
-    Must run before any other jax API touches the backend.  On TPU pods
-    all arguments auto-discover; on CPU/GPU they come from arguments or
-    the MCMCTOF_* env vars.  Replaces the reference's MPI rank logic
+    Must run before any other jax API touches the backend.  The
+    coordinator, process count and rank come from arguments or the
+    MCMCTOF_* env vars.  Replaces the reference's MPI rank logic
     (``tests/mpiTOFmodel.py:187-191``): after this call there are no
     ranks to branch on — every process runs the same program over the
     global device set.
@@ -75,7 +76,7 @@ def global_mesh(axis_name: str = WALKER_AXIS) -> Mesh:
     """1-D walker mesh over the GLOBAL device set (all processes).
 
     Within one process this is exactly ``make_mesh()``; after
-    :func:`initialize` it spans hosts and the walker axis crosses DCN.
+    :func:`initialize` it spans hosts and the walker axis crosses them.
     """
     return make_mesh(None, axis_name)
 

@@ -5,11 +5,11 @@ multiprocessing pools and ``emcee.utils.MPIPool`` master/worker task farms
 (``tests/simultFit.py:688-718``, ``tests/mpiTOFmodel.py:187-201``) — with the
 single-controller JAX model: walkers are a sharded array axis on a
 ``jax.sharding.Mesh``; the expensive per-walker log-probability evaluations
-run fully parallel on every chip via ``shard_map``; the tiny stretch-move
+run fully parallel on every device via ``shard_map``; the tiny stretch-move
 bookkeeping stays replicated, and XLA inserts the one small all-gather of
-half-ensemble positions over ICI.  There is no hand-written communication
-backend — the only collectives are those XLA derives from the shardings
-(SURVEY.md §2.4).
+half-ensemble log-probs (NCCL over NVLink between the GPUs of one host).
+There is no hand-written communication backend — the only collectives are
+those XLA derives from the shardings (SURVEY.md §2.4).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ WALKER_AXIS = "walkers"
 
 
 def make_mesh(devices=None, axis_name: str = WALKER_AXIS) -> Mesh:
-    """1-D mesh over all (or given) devices; walker axis rides ICI."""
+    """1-D mesh over all (or given) devices: the walker axis."""
     if devices is None:
         devices = jax.devices()
     return Mesh(np.asarray(devices), (axis_name,))

@@ -25,7 +25,7 @@ momentum-sum U-turn criterion, iterative formulation:
 * divergence (leaf energy error < -1000) or an internal U-turn discards
   the entire new subtree, exactly like the recursive sampler.
 
-TPU notes: static shapes throughout; all chains advance under one vmap;
+Accelerator notes: static shapes throughout; all chains advance under one vmap;
 the whole chain segment runs in a single ``lax.scan`` program.
 """
 from __future__ import annotations
@@ -260,10 +260,7 @@ def nuts_sample(key, p0, n_steps: int, log_prob_fn: Callable, *,
 
     ``segment_steps > 0`` caps every device dispatch at that many NUTS
     transitions (warm-up windows and main chain alike) with bitwise-
-    identical results (sampler/_adapt.scan_segments) — required on
-    remote-transport TPU backends where one multi-thousand-step scan of
-    up-to-2^max_depth gradient evals exceeds the dispatch deadline and
-    wedges the device.
+    identical results (sampler/_adapt.scan_segments).
     """
     p0 = jnp.asarray(p0, dtype=jnp.float32)
     n_chains, n_dim = p0.shape

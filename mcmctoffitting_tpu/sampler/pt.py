@@ -2,7 +2,7 @@
 
 Replaces ``emcee.PTSampler`` as used by the reference's analytic-vs-numeric
 study (20 temperatures x 100 walkers, ``tests/shiftingGaussian_brute.py:
-349-360``).  TPU-native design: the temperature ladder is just one more
+349-360``).  Design: the temperature ladder is just one more
 vmapped array axis on top of the walker axis — per-temperature stretch
 moves run as a (T, W)-batched computation, and the replica-exchange phase
 is a tiny elementwise shuffle between adjacent temperature slices.
@@ -20,6 +20,7 @@ Metropolis ratio.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import jax
@@ -150,8 +151,13 @@ def _make_batched(fn: Callable, stochastic: bool) -> Callable:
 
 
 def init_pt_state(key, p0, loglike_batch, logprior_batch) -> PTState:
-    """p0: (T, W, D)."""
-    p0 = jnp.asarray(p0, dtype=jnp.float32)
+    """p0: (T, W, D).  One compiled program, as ``stretch.init_state``."""
+    return jax.jit(functools.partial(_init_pt_state, loglike_batch,
+                                     logprior_batch))(
+        key, jnp.asarray(p0, dtype=jnp.float32))
+
+
+def _init_pt_state(loglike_batch, logprior_batch, key, p0) -> PTState:
     t, w, _ = p0.shape
     key, k0 = jax.random.split(key)
     keys = jax.random.split(k0, t * w).reshape(t, w, -1)

@@ -2,7 +2,7 @@
 
 Replaces emcee's ``EnsembleSampler`` (the reference drives it with
 ``threads=N`` process pools or an ``MPIPool`` — ``tests/csi_oneBD.py:863-868``,
-``tests/simultFit.py:688-718``).  TPU-native design:
+``tests/simultFit.py:688-718``).  Design:
 
 * walkers are an **array axis**, not processes: the log-probability is
   evaluated for a whole half-ensemble with one batched call (vmap inside;
@@ -34,6 +34,7 @@ reproducibility of existing chains).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import jax
@@ -114,6 +115,10 @@ def init_state(key, p0, logp_batch) -> EnsembleState:
     — outside the prior box — stay -inf, as they should).  When the
     first draw is already all-finite this consumes no extra randomness
     and is bitwise identical to the unguarded init.
+
+    The evaluation runs as one compiled program: called eagerly, a
+    sharded ``logp_batch`` (``shard_map``) would dispatch every primitive
+    of the forward model as its own multi-device program.
     """
     p0 = jnp.asarray(p0, dtype=jnp.float32)
     n_walkers = p0.shape[0]
@@ -121,6 +126,11 @@ def init_state(key, p0, logp_batch) -> EnsembleState:
         raise ValueError(
             f"n_walkers must be even for the red-black stretch move, "
             f"got {n_walkers}")
+    return jax.jit(functools.partial(_init_state, logp_batch))(key, p0)
+
+
+def _init_state(logp_batch, key, p0) -> EnsembleState:
+    n_walkers = p0.shape[0]
     key, k0 = jax.random.split(key)
     lp0 = logp_batch(p0, jax.random.split(k0, n_walkers))
 

@@ -6,7 +6,7 @@ coordinates every leapfrog step that crosses a box face lands on
 log p = -inf — an automatic NUTS "divergence" — and the (eLoss, scale,
 s) lognorm ridge is sharply anisotropic, so a linear standardization
 left the round-4 flagship NUTS run at a 46% divergence rate
-(artifacts/parity_nuts_report.txt, VERDICT r4 item 4).
+(artifacts/parity_nuts_report.txt).
 
 The standard fix (Stan's constrained-parameter transform): sample the
 unconstrained u in R^D with

@@ -6,7 +6,7 @@ has the ``sampler.acor`` printout commented out
 choice in the reference is a hard-coded guess.  The round-2/3 parity
 studies showed why that matters: short ensemble chains on the degenerate
 eLoss/scale/s ridge report posterior widths up to ~10x too narrow
-(RESULTS_r3.md "oneBD posterior parity").  These host-side metrics make
+(artifacts/parity_onebd_report.txt).  These host-side metrics make
 under-sampling visible at the end of every fit.
 
 Implementation notes (all numpy; chains are (S, W, D) = steps x walkers x

@@ -1,6 +1,6 @@
 """Posterior-predictive checks, spectrum extraction, and MCNP SDEF export.
 
-TPU-native rebuild of ``utilities/ppcTools.py`` / ``ppcTools_oneBD.py``:
+JAX rebuild of ``utilities/ppcTools.py`` / ``ppcTools_oneBD.py``:
 instead of looping posterior draws through a Python generateModelData
 (``utilities/ppcTools.py:283-330``), draws are stacked and the forward model
 is evaluated per draw under jit (vmap is avoided on purpose: each PPC draw

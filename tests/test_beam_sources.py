@@ -102,7 +102,7 @@ def test_deterministic_bg_joint_logp_is_deterministic():
 
 
 def test_ppc_on_skewnorm_era_chain():
-    """VERDICT round-1 gap: PPC must be representable for old-campaign
+    """PPC must be representable for old-campaign
     (skewnorm-parameterized) chains through the unified forward."""
     from mcmctoffitting_tpu.utils.ppc import PPCSampler
     spec = csi2016.default_spec(n_samples=2000)

@@ -1,6 +1,6 @@
 """Fast e2e smoke of both flagship ``main()``s in the default suite.
 
-VERDICT r3 item 7: the full CLI wiring (arg parsing -> spec/problem build
+The full CLI wiring (arg parsing -> spec/problem build
 -> synthetic data -> burn-in + main phases -> chain files -> quantile
 report) must be exercised WITHOUT ``-m slow``, so a driver regression is
 caught on every run.  Tiny everything: 4 walkers, 5+5 steps, 2k draws,

@@ -108,7 +108,7 @@ def test_counts_logp_noise_not_worse_than_mc(specs):
     Uses the PRODUCTION counts spec (default_spec picks the 4x finer grid
     for counts mode; the coarse-F counts estimator is noisier under rint —
     measured 1.38x at F=256 vs 1.18x at F=1024 at 50k draws, and BELOW mc
-    at the flagship 200k: 1.08 vs 1.16; RESULTS_r3.md).
+    at the flagship 200k: 1.08 vs 1.16).
     """
     from mcmctoffitting_tpu.utils import data_io
 

@@ -1,6 +1,6 @@
 """Direct unit tests for the TAC TSV reader/writer.
 
-VERDICT r3 item 6: ``read_multi_standoff_tof_data`` previously had only
+``read_multi_standoff_tof_data`` previously had only
 slow-marked CLI e2e coverage; a header-format regression must be caught
 in the default suite.  Semantics under test mirror the reference's
 ``readMultiStandoffTOFdata`` (``utilities/utilities.py:198-216``): rows

@@ -5,7 +5,7 @@ Validates the three claims the design rests on:
    transport->XS-weight->histogram grid (the reference semantics,
    ``tests/csi_oneBD.py:452-465``) to well below the reference's own
    rint() rounding of +-0.5 counts per grid cell;
-2. the device (jit, f32, one-hot MXU) moment path matches the host f64
+2. the device (jit, f32, one-hot matmul) moment path matches the host f64
    reference of the same operator;
 3. the full forward spectrum under 'e0grid' matches the 'taylor' production
    path at the spectrum level.
@@ -313,7 +313,8 @@ def test_cell_closure_logp_shift_below_f_margin():
     (measured here: eager-vs-jit of the exact program steps ~0.5 at such
     thetas).  With rint OFF the response surface is smooth and the
     closure's reweighting is bounded below the pinned fine-grid margin
-    (|delta logp| std 0.052 between F=512 and F=4096, RESULTS_r3.md)."""
+    (|delta logp| std 0.052 between F=512 and F=4096,
+    artifacts/hardcore_f_logp_shift.json)."""
     import dataclasses
 
     from mcmctoffitting_tpu.utils import data_io
@@ -351,7 +352,7 @@ def test_fine_grid_override():
     """fine_grid= overrides the per-mode F default and rebuilds the table.
 
     The CLI -fineGrid knob rides this; the posterior-level fidelity of any
-    F >= 512 is pinned by the logp-shift study (RESULTS_r3.md, hardcore
+    F >= 512 is pinned by the logp-shift study (hardcore
     frontier: std <= 0.06 for F in {512, 1024, 2048}).
     """
     from mcmctoffitting_tpu.models import onebd, simult
@@ -364,7 +365,7 @@ def test_fine_grid_override():
     o = onebd.default_spec(n_samples=1000, sampling="counts", fine_grid=256)
     assert o.e0_grid_fine == 256
     # defaults are draw-count aware: the halved grids are measured
-    # equivalent at the 200k-draw production scale (RESULTS_r3.md), but
+    # equivalent at the 200k-draw production scale, but
     # below ~100k draws the within-cell rint granularity needs the finer
     # grid (counts noise 1.8x mc at 50k draws/F=512 vs 1.2x at F=1024)
     assert simult.default_spec(n_samples=200_000,
@@ -389,13 +390,14 @@ def test_bf16_a_operator_accuracy_and_flag():
     """a_dtype='bfloat16' stores only the static A operator in bf16.
 
     The knob exists for the oneBD -hardcore scale where A is 131 MB and
-    the half-ensemble matmul streams it HBM-bound.  Accuracy is NOT
+    the half-ensemble matmul streams all of it.  Accuracy is NOT
     ~bf16 eps: the contraction reconstructs a cubic from global
     t-moments, cancelling across the four channel rows with condition
     ~16 — measured median grid error ~1.6%, max ~6% of the dominant
     scale (this test pins those bounds).  Below the hardcore counts
-    path's ~9% per-cell Poisson noise, but systematic — the default
-    stays f32 everywhere pending a posterior A/B (RESULTS_r5.md).
+    path's ~9% per-cell Poisson noise, but systematic — only the
+    -hardcore counts preset uses it, after a posterior A/B
+    (artifacts/hardcore_a_dtype_ab.json).
     """
     import dataclasses
 

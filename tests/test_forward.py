@@ -80,7 +80,7 @@ def test_onebd_spectrum_with_background():
 
 
 def test_forward_distribution_against_numpy_oracle():
-    """Distributional check: the TPU forward spectrum (without rint/conv
+    """Distributional check: the device forward spectrum (without rint/conv
     quantization differences) agrees with an independent f64 numpy
     implementation of the same pipeline to MC accuracy."""
     from scipy.integrate import ode as sode

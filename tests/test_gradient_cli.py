@@ -2,7 +2,7 @@
 
 Beyond the reference (its MC + int()-sawtooth likelihood has no usable
 gradient); the differentiable configuration is expected forward +
-Poisson logpmf + rint off (RESULTS_r2.md cross-validation study).
+Poisson logpmf + rint off (cross-validation study).
 """
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""MXU one-hot histogram vs np.histogram semantics."""
+"""One-hot matmul histogram vs np.histogram semantics."""
 import jax
 import numpy as np
 import pytest

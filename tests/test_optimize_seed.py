@@ -1,4 +1,4 @@
-"""Optimizer-seeded walker initialization (VERDICT round-2 items 5/6).
+"""Optimizer-seeded walker initialization.
 
 * v1 TNC seed: ``cli/simple_tof.py --minimizeSeed`` mirrors the reference's
   bounded TNC minimize before emcee (``tests/simpleTOFfit.py:267-283``).

@@ -1,4 +1,4 @@
-"""Content asserts for the visualization layer (VERDICT r3 item 6).
+"""Content asserts for the visualization layer.
 
 Not just import checks: each figure's plotted DATA is verified against
 the math it claims to show (analytic pdf values, posterior quantiles),

@@ -55,7 +55,7 @@ def test_ti_method_on_chain(pt_chain):
         betas, fburnin=0.3)
     assert ln_z_m == ln_z_fn
     # the chain stores the ladder it was sampled at; the no-arg call
-    # must use it (ADVICE r3: no re-derivation at call sites)
+    # must use it (no re-derivation at call sites)
     np.testing.assert_allclose(np.asarray(chain.betas), betas, rtol=1e-6)
     ln_z_default, _ = chain.thermodynamic_integration_log_evidence(
         fburnin=0.3)

@@ -96,8 +96,7 @@ def test_thinning():
 
 
 def test_pt_on_reduced_tof_posterior_traverses_ridge():
-    """Replica exchange on the real physics posterior (VERDICT round-2
-    item 7): the beamE-eLoss direction is a ~34 keV-per-sigma degeneracy
+    """Replica exchange on the real physics posterior: the beamE-eLoss direction is a ~34 keV-per-sigma degeneracy
     ridge under the corrected likelihood; the cold chain of a short PT run
     must traverse a macroscopic stretch of it and the inter-rung swaps
     must actually fire."""

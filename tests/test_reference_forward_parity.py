@@ -1,7 +1,7 @@
 """Fast v0 forward parity vs the reference's own generateModelData.
 
 The full five-family study lives in
-``tools/reference_forward_compare_simple.py`` (RESULTS_r3.md table); this
+``tools/reference_forward_compare_simple.py``; this
 test keeps the lightest row (v0, reduced draws) in the suite so a forward
 regression against the reference semantics is caught in CI.  Skipped when
 the reference tree is not present.

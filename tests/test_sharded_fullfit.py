@@ -1,4 +1,4 @@
-"""Sharded full-fit posterior parity (VERDICT r3 item 3).
+"""Sharded full-fit posterior parity.
 
 A complete (burn-in -> checkpoint -> resume -> main) simultFit on the
 virtual 8-device mesh must produce chains IDENTICAL to the single-device
@@ -7,7 +7,7 @@ parallelism (SURVEY.md §2.4; the reference's moral equivalent is the
 full MPI fit loop, ``tests/mpiTOFmodel.py:199-236``).
 
 The committed artifact ``artifacts/sharded_fullfit_parity.json`` records
-the VERDICT-scale run (64 walkers, 200+100 steps); this in-suite version
+the full-scale run (64 walkers, 200+100 steps); this in-suite version
 shrinks the step counts to stay fast while exercising every phase of the
 same protocol via the same code path.
 """

@@ -49,7 +49,7 @@ def test_sharded_sampler_matches_unsharded_statistics(mesh):
 
 
 def test_sharded_real_physics_matches_local(mesh):
-    """Mesh correctness of the ACTUAL program (VERDICT round-1 item 3):
+    """Mesh correctness of the ACTUAL program:
     one small SimultFitProblem driven through the sharded and local
     evaluators with the same seed must produce near-bitwise-equal chains
     (stochastic Monte-Carlo likelihood included — keys are per-walker, so
@@ -87,18 +87,14 @@ def test_indivisible_walker_count_raises(mesh):
 
 def test_graft_dryrun_multichip():
     """The driver's multi-chip validation path end-to-end."""
-    import sys
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import dryrun_multichip
     dryrun_multichip(8)
 
 
 def test_bench_mesh_smoke(monkeypatch):
     """bench.py's mesh-aware path executes on the virtual 8-device mesh
-    (VERDICT round-2 item 3: first contact with real multi-chip hardware
-    must produce a number, not a TODO)."""
-    import sys
-    sys.path.insert(0, "/root/repo")
+    (the timing code itself runs on any backend; only bench.main()
+    insists on a GPU)."""
     import bench
 
     monkeypatch.setattr(bench, "N_WALKERS", 32)
@@ -107,8 +103,8 @@ def test_bench_mesh_smoke(monkeypatch):
     monkeypatch.setattr(bench, "N_STEPS_MEASURE", 2)
     monkeypatch.setattr(bench, "WALKER_CHUNK", 2)
     monkeypatch.setattr(bench, "MESH", 8)
-    rate, mfu, n_dev = bench.measure_tpu(sampling="counts")
-    assert rate > 0 and np.isfinite(mfu)
+    rate, n_dev = bench.measure_segment(sampling="counts")
+    assert rate > 0 and np.isfinite(rate)
     assert n_dev == 8
 
 

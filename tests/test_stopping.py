@@ -50,7 +50,7 @@ def test_rk4_transport_matches_dopri5():
     x_centers = SIMULTFIT_X_BINNING.centers  # 10 bins over 2.86 cm
     # physical region: E0 < ~430 keV plunges into the unphysical Bethe
     # minimum (~18 keV) before the cell exit, where both integrators are
-    # meaningless (the TPU path freezes such samples at the 20 keV floor)
+    # meaningless (the device path freezes such samples at the 20 keV floor)
     e0 = np.linspace(450.0, 1200.0, 64)
 
     # scipy dopri5 oracle with the vector ODE state, like simultFit.py:256-258

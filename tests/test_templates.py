@@ -128,7 +128,7 @@ def test_initial_guess_model():
 def test_template_fit_cli_writes_unfolded_spectrum(tmp_path, monkeypatch):
     """The driver's closing visualization (the reference ends with an
     unfolded-spectrum plot, tests/devShapeTemplates.py:584-631) must be
-    produced by the CLI, not just the trace plot (VERDICT r3 item 6)."""
+    produced by the CLI, not just the trace plot."""
     import os
 
     monkeypatch.chdir(tmp_path)

@@ -1,8 +1,7 @@
 """Box-logit transform (sampler/transforms.py): exactness + NUTS impact.
 
-The transform is the round-5 fix for the flagship NUTS divergence rate
-(VERDICT r4 item 4): box faces move to infinity, so leapfrog never lands
-on a -inf prior cliff.
+The transform fixes the flagship NUTS divergence rate: box faces move to
+infinity, so leapfrog never lands on a -inf prior cliff.
 """
 import jax
 import jax.numpy as jnp

@@ -29,7 +29,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from mcmctoffitting_tpu.utils import compile_cache  # noqa: E402
+compile_cache.enable()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 

@@ -12,7 +12,7 @@ Two instruments per flagship, both sampler-free:
    grid; this one runs the COUNTS configs of both flagships.)
 2. *Pseudo-marginal noise*: counts-mode per-eval logp std at fixed theta
    (30 keys) at each F — the coarse-F counts estimator is noisier under
-   rint (RESULTS_r3.md), so the default F must keep this at or below the
+   rint, so the default F must keep this at or below the
    faithful MC path's noise (measured 1.16 at the flagship simult
    config).
 
@@ -37,7 +37,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from mcmctoffitting_tpu.utils import compile_cache  # noqa: E402
+compile_cache.enable()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 

@@ -3,7 +3,7 @@
 The headline metric (walker-steps/s) only proves the counts estimator
 STEPS faster; a pseudo-marginal sampler's science throughput is
 ESS/second = ESS/step x steps/second, and a noisier per-eval logp can
-in principle buy step rate with worse mixing.  RESULTS_r3 already pins
+in principle buy step rate with worse mixing.  An earlier study pinned
 the per-eval logp noise at 1.08 (counts) vs 1.16 (mc) — this study
 closes the loop at the CHAIN level: identical problem, observed data
 and chain lengths under both estimators, integrated autocorrelation
@@ -30,7 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from mcmctoffitting_tpu.utils import compile_cache  # noqa: E402
+compile_cache.enable()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
@@ -62,7 +63,7 @@ def run_chain(sampling: str, move: str = "stretch"):
         spec = onebd.default_spec(n_samples=N_DRAWS, sampling=sampling)
         # deterministic background isolates the MOVE effect (the faithful
         # per-eval Poisson bg draw freezes acceptance for every move;
-        # RESULTS_r3.md "a third reference noise source")
+        # the third reference noise source, README "Statistical findings")
         spec = dataclasses.replace(spec, bg_mode="expected")
         problem = onebd.OneBDProblem(spec, n_runs=3,
                                      likelihood="poisson")

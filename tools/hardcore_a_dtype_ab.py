@@ -1,11 +1,9 @@
 """Posterior-level A/B gate for the bf16 A operator at the oneBD
--hardcore scale (VERDICT r4 item 6; RESULTS_r5.md).
+-hardcore scale.
 
-The hardcore (400x20, F=4096 at 200k draws) e0grid contraction streams a
-131 MB A matrix per half-ensemble eval and is HBM-bandwidth-bound:
-a_dtype='bfloat16' measured +36% end-to-end (82,103 -> 111,809
-walker-steps/s, tools/tpu_onebd_bench.py --hardcore --sampling counts
---steps 200 [--a-dtype bfloat16]).  The rounding is NOT free — the
+The hardcore (400x20) e0grid contraction streams a 131 MB A matrix per
+half-ensemble eval; a_dtype='bfloat16' halves those bytes (its speed on
+the H100 is not yet measured).  The rounding is NOT free — the
 cubic-reconstruction cancellation amplifies bf16 eps by ~16x (median
 grid error ~1.6%, tests/test_e0grid.py) and the error is systematic.
 This study runs the COMPLETE hardcore fit twice (identical observed
@@ -44,8 +42,8 @@ def main() -> int:
     import jax
     import jax.numpy as jnp  # noqa: F401
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from mcmctoffitting_tpu.utils import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 

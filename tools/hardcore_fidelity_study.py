@@ -1,5 +1,4 @@
-"""Posterior-level fine-grid (F) fidelity study for -hardcore (VERDICT r2
-item 8).
+"""Posterior-level fine-grid (F) fidelity study for -hardcore.
 
 Round 2 chose the hardcore e0grid fine-grid F=1024 from a PER-CELL error
 sweep (mis-assignment <= 25% of per-bin MC noise).  This pins the choice at
@@ -7,7 +6,7 @@ the POSTERIOR level: run the corrected-likelihood (-likelihood poisson)
 hardcore fit at F in {512, 1024, 2048} on identical observed data and
 identical PRNG seeds, and measure how much the posterior medians and
 widths move between F settings, in units of the F=1024 posterior sigma.
-Acceptance bar (VERDICT): < 0.1 sigma.
+Acceptance bar: < 0.1 sigma.
 
 Usage: python tools/hardcore_fidelity_study.py [--steps N] [--walkers W]
 Writes out/hardcore_f_study.json and prints the table.
@@ -21,7 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from mcmctoffitting_tpu.utils import compile_cache  # noqa: E402
+compile_cache.enable()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 

@@ -42,8 +42,8 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from mcmctoffitting_tpu.utils import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
@@ -65,7 +65,7 @@ def main() -> int:
     spec = dataclasses.replace(spec, run_axis=axis)
     # ESS/s is measured on the CORRECTED Poisson likelihood: under the
     # faithful sawtooth the ensemble's acceptance decays to zero as it
-    # tightens (the int()-gammaln pseudo-noise, RESULTS_r2.md), so tau
+    # tightens (the int()-gammaln pseudo-noise), so tau
     # grows without bound and no move family has a stationary ESS there
     # (measured: acc 0.00 after 13k steps, tau still climbing).  The
     # poisson chain is stationary and is the recommended production

@@ -3,7 +3,7 @@
 Reads the chains written by onebd_convergence_study.sh and prints, for
 each mode and parameter, the posterior median, the +/- 1 sigma interval,
 and the z-score of the synthesis truth.  numpy-only (no jax) so it can
-run alongside a TPU job.
+run alongside a GPU job without opening the card.
 """
 import os
 import sys

@@ -73,8 +73,8 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from mcmctoffitting_tpu.utils import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     from mcmctoffitting_tpu.models import simult

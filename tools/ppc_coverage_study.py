@@ -94,7 +94,7 @@ def main(argv=None) -> dict:
          "onebd": "onebd_countsmainchain.dat"}[args.model])
     if not os.path.exists(chain_path):
         sys.exit(f"error: chain file not found: {chain_path} "
-                 "(run the full fits first; RESULTS_r3.md)")
+                 "(run the full fits first)")
 
     import jax
 

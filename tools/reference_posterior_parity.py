@@ -15,7 +15,7 @@ and steps, on whatever jax backend is active.
 Usage:
   python tools/reference_posterior_parity.py prepare   # synth shared data
   python tools/reference_posterior_parity.py reference # CPU, ~30-60 min
-  python tools/reference_posterior_parity.py ours      # TPU/CPU, fast
+  python tools/reference_posterior_parity.py ours      # GPU/CPU, fast
   python tools/reference_posterior_parity.py report
 """
 from __future__ import annotations
@@ -344,8 +344,8 @@ def run_ours():
     observed = _load_observed()
     sys.path.insert(0, REPO)
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from mcmctoffitting_tpu.utils import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     import jax.numpy as jnp
@@ -439,7 +439,7 @@ def report():
                  "(medians in pooled posterior-sigma units) -> "
                  f"{verdict} (advisory threshold 1.0; under the faithful "
                  "sawtooth likelihood the frozen-ensemble sigmas make dz "
-                 "overly strict — see RESULTS_r2.md)")
+                 "overly strict — see README "Statistical findings")")
     lines.append(f"worst |z_se| = {worst_se:.2f} "
                  f"(median-difference / tau-corrected median SEs; "
                  f"min per-param ESS {ess_min:.0f}) -> {verdict_se} "

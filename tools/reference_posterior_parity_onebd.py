@@ -266,8 +266,8 @@ def run_ours():
     observed = _load_observed()
     sys.path.insert(0, REPO)
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from mcmctoffitting_tpu.utils import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     import jax.numpy as jnp
